@@ -1,8 +1,9 @@
-"""raytracingrust_tpu — a TPU-native differentiable path tracer.
+"""raytracingrust_tpu — a differentiable path tracer in JAX.
 
 Brand-new JAX/XLA/Pallas framework with the full capability surface of the
-reference Rust CPU tracer (LevKruglyak/RayTracingRust), re-designed TPU-first:
-SoA scene pytrees, intersection-as-matmul on the MXU, a flat skip-link BVH
+reference Rust CPU tracer (LevKruglyak/RayTracingRust), re-designed for
+accelerators: SoA scene pytrees, dense intersection as matmuls, a Triton
+megakernel for sphere scenes on the GPU, a flat skip-link BVH
 with stackless lockstep traversal, branchless material shading, counter-based
 reproducible RNG, ray-sharded multi-chip rendering, and detached-sampling
 gradients for inverse rendering.

@@ -64,50 +64,6 @@ def apply_params(scene: Scene, params: dict) -> Scene:
     return scene
 
 
-def resolve_fit_engine(scene: Scene) -> str:
-    """Resolve "auto" for a DIFFERENTIABLE render (the fit path).
-
-    Under jax.grad only a differentiable engine qualifies.  The brute
-    kernel differentiates everything in its envelope INCLUDING skymap
-    scenes (miss records ride the custom_vjp; _env_finish's gather
-    cotangents enter the fused backward).  Scenes beyond it take the
-    packet-traversal BVH kernel, whose backward is the record-and-replay
-    path (ops/pallas_megakernel _bvh_cvjp + diff/replay.py).  Only scenes
-    NO kernel admits fall to the XLA reverse path.
-
-    TRIANGLE gradients never take the brute kernel on real TPUs: its
-    in-kernel vjp through the triangle-chunk matmuls crashes the Mosaic
-    compiler (SIGABRT) at ANY triangle count — measured on v5e at
-    16/128/256/512/1024 tris, fused AND two-pass variants
-    (docs/performance.md; r2 only ever ran tri-grads in interpret mode).
-    DEEP chains never take it either: the grad kernel always unrolls
-    (jax.vjp cannot transpose while_loop) and the depth-50 unrolled grad
-    did not finish compiling in 10 min on v5e, while the record+replay
-    fit of the same scene runs at 623K rays/s
-    (scripts/exp_grad_envelope.py, r4).  Triangle and deep fits use the
-    BVH record-and-replay path — hardware-validated at depth 50 (monkey:
-    713K rays/s fwd+bwd) and at 28k tris (cool_cube: 1.93M); shallow
-    sphere-only scenes (the proven fused envelope, bench.py's headline)
-    keep the fused brute kernel.
-    """
-    from ..ops.pallas_megakernel import (UNROLL_MAX_DEPTH, supports,
-                                         supports_bvh)
-    from ..render.render import env_is_small
-
-    on_tpu = jax.devices()[0].platform != "cpu"
-    fits = (supports(scene) and len(scene.triangles) == 0
-            and scene.settings.max_ray_depth <= UNROLL_MAX_DEPTH)
-    if not on_tpu or env_is_small(scene):
-        # small env-IS fits keep the XLA MIS estimator (the measured
-        # winner below the dense-intersector boundary, render.py)
-        return "xla"
-    if fits:
-        return "pallas"
-    if supports_bvh(scene):
-        return "pallas_bvh"
-    return "xla"
-
-
 def make_loss(scene: Scene, target, width: int, height: int, *,
               seed: int = 0, tile_rays: int = 1 << 16,
               engine: str = "auto", mesh=None):
@@ -115,51 +71,47 @@ def make_loss(scene: Scene, target, width: int, height: int, *,
     (H, W, 3) linear radiance.  Differentiable in every PARAM_PATHS leaf
     present in ``params``.
 
-    ``engine="auto"`` routes through the Pallas megakernel when the scene
-    qualifies and a TPU is present — its custom_vjp backward is the fused
-    forward-replay+vjp kernel, so the product fit path runs at the same
-    speed as bench.py's fwd+bwd headline.  ``key`` (optional (2,) threefry
-    key words) overrides ``seed`` and may be traced: the fit loop reseeds
-    per step without recompiling.
+    ``engine`` resolves with ``render.resolve_engine(use="fit")``: "auto"
+    takes the sphere kernel on a GPU when the scene is in its grad
+    envelope, whose fused render->MSE->grad kernel makes one
+    ``value_and_grad`` step one kernel launch.  ``key`` (optional (2,)
+    threefry key words) overrides ``seed`` and may be traced: the fit loop
+    reseeds per step without recompiling.
 
     ``mesh``: a ``jax.sharding.Mesh`` — the loss shards its rays over the
     mesh's first axis with the scene/params replicated; ``jax.grad``'s
-    parameter cotangents are psum'd over ICI (the BASELINE.json north
-    star's "all-reducing parameter gradients" collective).  Because the
+    parameter cotangents are psum'd over the devices (over NVLink on a
+    multi-GPU host; the BASELINE.json north star's "all-reducing parameter
+    gradients" collective).  Because the
     RNG is counter-based over GLOBAL ray ids, the sharded loss equals the
     single-device loss to f32 reduction order for any mesh size
     (tests/test_sharded_fit.py).
     """
+    from ..render.render import resolve_engine
+
     target = jnp.asarray(target)
-    if engine == "auto":
-        engine = resolve_fit_engine(scene)
+    engine, interpret = resolve_engine(scene, engine, use="fit")
     if mesh is not None:
         return _make_loss_sharded(scene, target, width, height, seed=seed,
                                   engine=engine, mesh=mesh)
 
     # Fused render->MSE->grad kernel (ops/pallas_megakernel.mse_loss_pallas):
-    # one kernel pass per value_and_grad step instead of forward + fused
-    # backward — the production fit step and the bench headline both run
-    # through here.  Falls back to the generic two-pass path off its gate
-    # (skymap, spp not dividing the lane width, beyond-brute scenes).
+    # one kernel pass per value_and_grad step instead of forward + backward.
+    # Off its gate (skymap, spp > 256) the two-pass kernel path runs.
     if engine == "pallas":
-        from ..ops.pallas_megakernel import (_sphere_kinds, _tri_kinds,
-                                             mse_loss_pallas,
+        from ..ops.pallas_megakernel import (mse_loss_pallas, sphere_kinds,
                                              supports_fused_mse)
         from ..utils import rng as _rng
 
         if supports_fused_mse(scene) and target.shape == (height, width, 3):
-            skinds = _sphere_kinds(scene)
-            tkinds = _tri_kinds(scene)
-            interpret = jax.devices()[0].platform == "cpu"
+            kinds = sphere_kinds(scene)
 
             def loss(params: dict, key=None):
                 s = apply_params(scene, params)
                 k = _rng.base_key(seed) if key is None else jnp.asarray(key)
-                return mse_loss_pallas(
-                    s, target, width, height,
-                    k.astype(jnp.int32), sphere_kinds=skinds,
-                    tri_kinds=tkinds, interpret=interpret)
+                return mse_loss_pallas(s, target, width, height,
+                                       k.astype(jnp.int32), kinds=kinds,
+                                       interpret=interpret)
 
             return loss
 
@@ -176,14 +128,14 @@ def _make_loss_sharded(scene: Scene, target, width: int, height: int, *,
                        seed: int, engine: str, mesh):
     """The multi-device fit loss: rays sharded, scene/params replicated.
 
-    Every shard runs the engine the single-chip fit would (the brute
-    megakernel's fused custom_vjp, the packet-BVH record+replay, or XLA —
-    render.make_pixel_radiance), inside one ``shard_map`` whose output is
-    the global masked SSE via an explicit ``psum``.  The backward of the
-    replicated (P()) scene input is itself a psum over the mesh — the
-    gradient all-reduce rides ICI with no hand-written collective.
+    Every shard runs the engine the single-device fit would (the sphere
+    kernel's two-pass custom_vjp, or XLA — render.make_pixel_radiance).
+    The kernel engine runs inside one ``shard_map`` whose output is the
+    global masked SSE via an explicit ``psum``; the backward of the
+    replicated (P()) scene input is itself a psum over the mesh, so the
+    gradient all-reduce needs no hand-written collective.
 
-    The single-chip fused render->MSE->grad kernel computes the WHOLE
+    The single-device fused render->MSE->grad kernel computes the WHOLE
     frame's loss in one launch and therefore stays a 1-device fast path;
     per shard this path runs the (two-pass) radiance custom_vjp + XLA MSE,
     which is the same kernel family at one extra elementwise pass.
@@ -207,7 +159,7 @@ def _make_loss_sharded(scene: Scene, target, width: int, height: int, *,
     w_np = (np.arange(padded) < n_pixels).astype(np.float32)
 
     radiance_fn, resolved = make_pixel_radiance(scene, width, height,
-                                                engine)
+                                                engine, use="fit")
 
     ray_sh = NamedSharding(mesh, P(RAY_AXIS))
     ids_d = jax.device_put(ids_np, ray_sh)
@@ -242,8 +194,8 @@ def _make_loss_sharded(scene: Scene, target, width: int, height: int, *,
         # parallel/distributed.py); the psum below is the only
         # cross-shard dataflow and is explicit.  Kernel engines are safe
         # under shard_map's local-shape retrace: they tile rays into
-        # fixed (8, 256) blocks, so per-ray arithmetic never depends on
-        # the batch size.
+        # fixed blocks, so per-ray arithmetic never depends on the batch
+        # size.
         check_vma=False,
     )
     def global_sse(s, ids, tgt, w, key):

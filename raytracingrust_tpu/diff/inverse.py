@@ -47,15 +47,15 @@ def fit(
     true stochastic gradient over path realizations instead of descending a
     single fixed-seed image; the key is a traced input to the jitted step,
     so reseeding never recompiles.  Pass 0 to pin the seed for all steps.
-    ``engine``: render engine for the loss ("auto" uses the Pallas
-    megakernel with its fused fwd+bwd custom_vjp on TPU when the scene
-    qualifies).
+    ``engine``: render engine for the loss ("auto" uses the sphere kernel's
+    fused fwd+bwd on a GPU when the scene qualifies; see
+    render.resolve_engine).
     ``constraints``: optional {name: (lo, hi)} clamps applied after each step
     (e.g. albedo in [0,1], fuzz >= 0).
     ``checkpoint_path``: when set, the optimizer state is periodically saved
     there and a matching existing checkpoint resumes the run mid-flight.
     ``mesh`` / ``sharded``: run the loss data-parallel over a device mesh
-    (rays sharded, scene + params replicated, gradient psum over ICI —
+    (rays sharded, scene + params replicated, gradient psum over the devices —
     diff.grad._make_loss_sharded).  ``sharded=True`` builds a 1-D mesh
     over all visible devices; pass ``mesh=`` for explicit topologies.
     The optimizer update itself is elementwise over replicated params, so

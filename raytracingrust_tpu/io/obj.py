@@ -1,6 +1,6 @@
 """Wavefront OBJ loader -> SoA triangle buffers.
 
-TPU-native twin of the reference's obj-rs ingestion
+Array twin of the reference's obj-rs ingestion
 (``Mesh::from_file`` lib/core/mesh.rs:63-76): instead of a ``Vec<Vertex>`` of
 structs we emit contiguous ``(V, 3)`` position/normal arrays and a ``(F, 3)``
 index array, ready to be flattened into the global scene SoA.

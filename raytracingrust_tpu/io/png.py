@@ -1,7 +1,7 @@
 """Minimal dependency-free PNG writer (stdlib zlib only).
 
 Replaces the reference's interactive ``pixels``/wgpu framebuffer blit
-(src/main.rs:92-97) as the output path: on a TPU pod there is no window, so
+(src/main.rs:92-97) as the output path: an accelerator host has no window, so
 renders land in PNG files.
 """
 

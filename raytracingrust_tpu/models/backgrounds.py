@@ -177,10 +177,8 @@ def sample_skymap_direction(bg: Background, u1, u2):
     # invert the row marginal, reusing the remaining uniform mass as the
     # intra-texel jitter.  CDF inversion is a broadcast compare-and-count
     # (== searchsorted side="left": the count of entries < u IS the first
-    # index with cdf >= u) — vmapped searchsorted lowers to per-element
-    # loops whose combined module OOM-killed the TPU compile helper
-    # (r4 env-IS hybrid debugging); the dense compare is what a lane
-    # machine wants anyway.
+    # index with cdf >= u).  It costs O(R * W) per bounce; a binary search
+    # would cost O(R * log W) (ROADMAP A7).
     y = jnp.clip(
         jnp.sum((bg.cdf_rows[None, :] < u1[:, None]).astype(jnp.int32),
                 axis=1), 0, h - 1)

@@ -1,8 +1,8 @@
 """Materials: authoring classes + the device-side SoA material table.
 
 The reference dispatches ``Box<dyn Material>::scatter`` per hit
-(lib/core/render.rs:40 -> lib/materials.rs).  Dynamic dispatch is poison for
-TPU lanes, so all materials live in ONE struct-of-arrays table and the shader
+(lib/core/render.rs:40 -> lib/materials.rs).  Dynamic dispatch does not
+vectorize over a ray wavefront, so all materials live in ONE struct-of-arrays table and the shader
 evaluates every lobe branchlessly, blending by a one-hot mask over the kind id
 (the "expert parallel" analog from SURVEY.md section 2.6).
 

@@ -1,6 +1,6 @@
 """Triangle meshes.
 
-TPU-native twin of ``Mesh`` (lib/core/mesh.rs:31-122): host-side NumPy
+Array twin of ``Mesh`` (lib/core/mesh.rs:31-122): host-side NumPy
 buffers that get flattened into the scene-wide SoA triangle arrays at build
 time.  The reference keeps a *nested* BVH per mesh (lib/core/mesh.rs:119-122)
 — we instead inline all triangles into one global flat BVH (SURVEY.md section

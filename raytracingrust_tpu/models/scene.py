@@ -2,7 +2,7 @@
 
 The reference owns ``Vec<Box<dyn Object>>`` + ``Vec<Box<dyn Material>>``
 behind handle types (lib/core/scene.rs:33-110) and intersects via dynamic
-dispatch.  On TPU the scene is one flat struct-of-arrays pytree living in
+dispatch.  Here the scene is one flat struct-of-arrays pytree living in
 device memory:
 
   * all spheres in ``(N,)``-shaped arrays (solid spheres and constant-density
@@ -51,7 +51,7 @@ MODE_NORMAL = "Normal"
 class RenderSettings:
     """RenderSettings (lib/core/scene.rs:22-30) with the reference defaults
     (lib/core/scene.rs:52-65).  ``enable_multithreading`` is kept for schema
-    parity; on TPU everything is data-parallel regardless."""
+    parity; on the device everything is data-parallel regardless."""
 
     samples_per_pixel: int = 5
     max_ray_depth: int = 6
@@ -172,64 +172,6 @@ class FlatBVH:
 
 
 @pytree_dataclass
-class ChunkedBVH:
-    """Chunk-leaf skip-link BVHs for the Pallas packet-traversal kernel.
-
-    One tree per primitive kind (spheres / triangles).  Nodes ride the
-    kernel's scalar memory — flat [min xyz | max xyz] f32 and
-    [hit_link, miss_link, chunk] i32 per node (chunk = -1 for inner nodes,
-    else the leaf's chunk ordinal).  ``*_perm`` reorders primitives into
-    contiguous <=leaf_size chunks (-1 = in-chunk padding); the driver packs
-    the permuted primitives into per-chunk MXU constant matrices.
-    """
-
-    sph_nodes_f: jnp.ndarray  # (K_s * 6,) f32  (SOLID spheres)
-    sph_nodes_i: jnp.ndarray  # (K_s * 3,) i32
-    sph_perm: jnp.ndarray     # (n_sph_chunks * leaf_size,) i32
-    tri_nodes_f: jnp.ndarray  # (K_t * 6,) f32
-    tri_nodes_i: jnp.ndarray  # (K_t * 3,) i32
-    tri_perm: jnp.ndarray     # (n_tri_chunks * leaf_size,) i32
-    # third tree: constant-density VOLUME spheres (global sphere row ids)
-    vol_nodes_f: jnp.ndarray = None  # (K_v * 6,) f32
-    vol_nodes_i: jnp.ndarray = None  # (K_v * 3,) i32
-    vol_perm: jnp.ndarray = None     # (n_vol_chunks * leaf_size,) i32
-    # MESH-bounded volumes (lib/volume.rs:25-31 with a Mesh boundary): the
-    # kernel needs each volume's boundary triangles DENSE (entry crossings
-    # may sit at negative t — rays inside the medium look backwards — so
-    # tree traversal with its t>=T_MIN slab floor cannot find them).
-    # ``mv_perm`` concatenates per-volume global tri ids, each volume
-    # padded to a chunk multiple; ``mv_spans`` = ((chunk_start, n_chunks),
-    # ...) per volume, static.  The surface tri tree EXCLUDES these
-    # triangles (they never shade as surfaces).
-    mv_perm: jnp.ndarray = None      # (n_mv_chunks * leaf_size,) i32
-    mv_spans: tuple = static_field(default=())
-    leaf_size: int = static_field(default=128)
-    sph_nodes: int = static_field(default=0)
-    tri_nodes: int = static_field(default=0)
-    vol_nodes: int = static_field(default=0)
-
-    @property
-    def n_sph_chunks(self) -> int:
-        return self.sph_perm.shape[0] // self.leaf_size
-
-    @property
-    def n_tri_chunks(self) -> int:
-        return self.tri_perm.shape[0] // self.leaf_size
-
-    @property
-    def n_vol_chunks(self) -> int:
-        if self.vol_perm is None:
-            return 0
-        return self.vol_perm.shape[0] // self.leaf_size
-
-    @property
-    def n_mv_chunks(self) -> int:
-        if self.mv_perm is None:
-            return 0
-        return self.mv_perm.shape[0] // self.leaf_size
-
-
-@pytree_dataclass
 class Scene:
     camera: Camera
     background: Background
@@ -237,7 +179,6 @@ class Scene:
     triangles: TriangleArray
     materials: MaterialTable
     bvh: Optional[FlatBVH]
-    cbvh: Optional[ChunkedBVH] = None
     mesh_volumes: Optional[MeshVolumeTable] = None
     settings: RenderSettings = static_field(default=RenderSettings())
 
@@ -446,11 +387,10 @@ class SceneBuilder:
 
         if with_bvh is None:
             with_bvh = self.settings.enable_bvh_tree
-        bvh = cbvh = None
+        bvh = None
         if with_bvh:
-            from ..ops.bvh import build_bvh, build_chunked_bvh
+            from ..ops.bvh import build_bvh
             bvh = build_bvh(spheres, triangles)
-            cbvh = build_chunked_bvh(spheres, triangles)
 
         return Scene(
             camera=self.camera,
@@ -459,7 +399,6 @@ class SceneBuilder:
             triangles=triangles,
             materials=build_table(self.materials),
             bvh=bvh,
-            cbvh=cbvh,
             mesh_volumes=mesh_volumes,
             settings=self.settings,
         )

@@ -5,7 +5,7 @@ contiguous node array with index links and a stackless traversal loop
 (lib/core/bvh.rs:201-293, entirely commented out).  The build *policy* is the
 reference's (BvhNode::from_list, lib/core/bvh.rs:59-144): recursive median
 split on the axis of greatest centroid spread, stable sort by centroid,
-split at len/2, leaf = 1 primitive.  The *layout* is TPU-native: DFS order
+split at len/2, leaf = 1 primitive.  The *layout* is wavefront-friendly: DFS order
 with hit/miss links so traversal is a branchless while-loop — no recursion,
 no stack, identical control flow for every ray in a wavefront.
 
@@ -125,165 +125,6 @@ def _build_topology(mins: np.ndarray, maxs: np.ndarray):
         hit_arr,
         miss_arr,
         max_depth[0],
-    )
-
-
-def _build_chunked_topology(mins: np.ndarray, maxs: np.ndarray,
-                            leaf_size: int):
-    """Median-split build with CHUNK leaves (<= leaf_size primitives).
-
-    The node granularity the Pallas megakernel traverses: a whole ray block
-    shares one node cursor (packet traversal — the TPU translation of the
-    reference's per-ray recursion, lib/core/bvh.rs:146-172), and each leaf
-    is a dense chunk of primitives intersected on the MXU.  Split policy is
-    the same centroid-spread median split as :func:`_build_topology`.
-
-    Returns (nodes_f (K, 6) f32 [min xyz | max xyz],
-             nodes_i (K, 3) i32 [hit_link, miss_link, chunk (-1 = inner)],
-             perm (n_chunks * leaf_size,) i64 primitive ids, -1 = padding).
-    """
-    n = mins.shape[0]
-    cent = aabb.centroid(mins, maxs)
-
-    nodes_f: list[np.ndarray] = []
-    hit: list[int] = []
-    miss: list[int] = []
-    chunk: list[int] = []
-    chunks: list[np.ndarray] = []
-
-    def split(ids):
-        c = cent[ids]
-        spread = c.max(axis=0) - c.min(axis=0)
-        sx, sy, sz = float(spread[0]), float(spread[1]), float(spread[2])
-        if sx > sy and sx > sz:
-            axis = 0
-        elif sy > sx and sy > sz:
-            axis = 1
-        else:
-            axis = 2
-        order = np.argsort(c[:, axis], kind="stable")
-        ids = ids[order]
-        half = ids.shape[0] // 2
-        return ids[:half], ids[half:]
-
-    def emit(ids: np.ndarray) -> None:
-        me = len(hit)
-        nodes_f.append(np.concatenate([mins[ids].min(axis=0),
-                                       maxs[ids].max(axis=0)]))
-        if ids.shape[0] <= leaf_size:
-            chunks.append(ids)
-            hit.append(me + 1)   # leaf: continue at the skip link either way
-            miss.append(me + 1)
-            chunk.append(len(chunks) - 1)
-            return
-        hit.append(me + 1)       # descend: first child is next in DFS order
-        miss.append(-1)
-        chunk.append(-1)
-        left, right = split(ids)
-        emit(left)
-        emit(right)
-        miss[me] = len(hit)      # skip: one past my whole subtree
-
-    emit(np.arange(n, dtype=np.int64))
-
-    perm = np.full((len(chunks), leaf_size), -1, np.int64)
-    for i, ids in enumerate(chunks):
-        perm[i, : ids.shape[0]] = ids
-    return (
-        np.stack(nodes_f).astype(np.float32),
-        np.stack([hit, miss, chunk], axis=1).astype(np.int32),
-        perm.reshape(-1),
-    )
-
-
-def build_chunked_bvh(spheres, triangles, leaf_size: int = 128):
-    """Build the per-kind chunk-leaf BVHs for the Pallas traversal kernel.
-
-    SOLID spheres, VOLUME spheres, and triangles get SEPARATE trees (the
-    kernel traverses them in sequence, each seeded with the previous
-    pass's best t) so leaf chunks are homogeneous — one MXU intersection
-    form per leaf, no per-leaf kind dispatch.  Volume spheres sort LAST in
-    the sphere SoA (models/scene.py), so the solid tree covers rows
-    [0, num_solid) and the volume tree [num_solid, n); both perms hold
-    GLOBAL sphere row indices.  Returns None for an empty scene.
-    """
-    import jax.numpy as jnp
-
-    from ..models.scene import ChunkedBVH
-
-    smin, smax = primitive_bounds(spheres, triangles)
-    ns = len(spheres)
-    n_solid = ns - spheres.num_volumes
-    n_total = smin.shape[0]
-    if n_total == 0:
-        return None
-
-    def one(lo, hi, base):
-        if lo.shape[0] == 0:
-            return None
-        nf, ni, perm = _build_chunked_topology(lo, hi, leaf_size)
-        pad = perm < 0
-        perm = perm + base
-        perm[pad] = -1
-        return nf, ni, perm
-
-    sph = one(smin[:n_solid], smax[:n_solid], 0)
-    vol = one(smin[n_solid:ns], smax[n_solid:ns], n_solid)
-
-    # the surface tri tree excludes MESH-VOLUME boundary triangles (they
-    # never shade as surfaces; the kernel intersects them with a dense
-    # two-pass crossing scan instead — ChunkedBVH.mv_* docstring)
-    tri_vol = np.asarray(triangles.volume) if len(triangles) else \
-        np.zeros((0,), np.int32)
-    surf_ids = np.nonzero(tri_vol < 0)[0]
-    tri = None
-    if surf_ids.shape[0]:
-        nf, ni, perm = _build_chunked_topology(
-            smin[ns:][surf_ids], smax[ns:][surf_ids], leaf_size)
-        pad = perm < 0
-        perm = surf_ids[np.maximum(perm, 0)]
-        perm[pad] = -1
-        tri = nf, ni, perm
-
-    # per-mesh-volume dense chunk permutations (global tri ids, each
-    # volume padded to a chunk multiple) + static (start, count) spans
-    n_mv = int(tri_vol.max()) + 1 if tri_vol.size and tri_vol.max() >= 0 \
-        else 0
-    mv_parts, mv_spans, start = [], [], 0
-    for v in range(n_mv):
-        ids = np.nonzero(tri_vol == v)[0].astype(np.int64)
-        nc = -(-ids.shape[0] // leaf_size)
-        padded = np.full((nc * leaf_size,), -1, np.int64)
-        padded[:ids.shape[0]] = ids
-        mv_parts.append(padded)
-        mv_spans.append((start, nc))
-        start += nc
-    mv_perm = (np.concatenate(mv_parts) if mv_parts
-               else np.zeros((0,), np.int64))
-
-    empty_f = np.zeros((0, 6), np.float32)
-    empty_i = np.zeros((0, 3), np.int32)
-    empty_p = np.zeros((0,), np.int64)
-    s_nf, s_ni, s_perm = sph if sph else (empty_f, empty_i, empty_p)
-    v_nf, v_ni, v_perm = vol if vol else (empty_f, empty_i, empty_p)
-    t_nf, t_ni, t_perm = tri if tri else (empty_f, empty_i, empty_p)
-
-    return ChunkedBVH(
-        sph_nodes_f=jnp.asarray(s_nf.reshape(-1)),
-        sph_nodes_i=jnp.asarray(s_ni.reshape(-1)),
-        sph_perm=jnp.asarray(s_perm, jnp.int32),
-        tri_nodes_f=jnp.asarray(t_nf.reshape(-1)),
-        tri_nodes_i=jnp.asarray(t_ni.reshape(-1)),
-        tri_perm=jnp.asarray(t_perm, jnp.int32),
-        vol_nodes_f=jnp.asarray(v_nf.reshape(-1)),
-        vol_nodes_i=jnp.asarray(v_ni.reshape(-1)),
-        vol_perm=jnp.asarray(v_perm, jnp.int32),
-        mv_perm=jnp.asarray(mv_perm, jnp.int32),
-        mv_spans=tuple(mv_spans),
-        leaf_size=leaf_size,
-        sph_nodes=int(s_nf.shape[0]),
-        tri_nodes=int(t_nf.shape[0]),
-        vol_nodes=int(v_nf.shape[0]),
     )
 
 

@@ -1,13 +1,13 @@
-"""Ray/primitive intersection, formulated for the MXU.
+"""Ray/primitive intersection, formulated as dense matmuls.
 
 The reference intersects one ray against one primitive at a time through
 dynamic dispatch (Sphere::hit lib/objects.rs:22-51, Triangle::hit
 Moller-Trumbore lib/core/mesh.rs:146-197).  Here a whole wavefront of R rays
-tests all N primitives at once, and — this is the TPU-native trick — every
+tests all N primitives at once, and every
 bilinear term of both intersection tests is a matmul:
 
   * sphere:    half_b and the quadratic constant need  d.c  and  o.c  over
-               all (ray, sphere) pairs -> (R,3) @ (3,N) on the MXU;
+               all (ray, sphere) pairs -> (R,3) @ (3,N);
   * triangle:  every Moller-Trumbore determinant is a scalar triple product,
                i.e. bilinear in the ray basis (o, d, w = o x d) and a
                precomputed per-triangle constant vector:
@@ -15,7 +15,7 @@ bilinear term of both intersection tests is a matmul:
                    u*a   =  w.e2 + d.(v0 x e2)
                    v*a   = -(w.e1 + d.(v0 x e1))
                    t*a   =  o.n - v0.n
-               -> six (R,3) @ (3,T) matmuls, everything else elementwise VPU.
+               -> six (R,3) @ (3,T) matmuls, everything else elementwise.
 
 All matmuls run at Precision.HIGHEST (f32 intersection math; bf16 loses hits
 to cancellation).  Quirk ledger: we honor tmax and use a proper determinant
@@ -65,11 +65,11 @@ def _dotT(a, b):
 # cc_rr = |c|^2 - r^2.  Naive f32 rounds |c|^2 at |c|^2 * eps — ~6e-4
 # absolute for the RTiOW ground sphere (|c| ~ 100.5, r = 100) — a CONSTANT
 # bias that lands exactly at the t ~ tmin = 1e-5 self-intersection decision
-# scale once a bounced ray re-tests its own sphere.  Measured on v5e (r5):
-# that bias systematically shifts the dense path's escape rate vs the
+# scale once a bounced ray re-tests its own sphere.  That bias
+# systematically shifts the dense path's escape rate vs the
 # direct-form kernels — background/albedo gradients disagreed by 7x the
 # Monte-Carlo reseed noise.  Computing the constant with exact two-products
-# and two-sums (costs a handful of VPU ops per SPHERE, not per ray) removes
+# and two-sums (costs a handful of ops per SPHERE, not per ray) removes
 # the bias; the remaining per-ray terms only round at |o||c| * eps ~ 1e-5.
 
 def _split_f32(x):
@@ -126,8 +126,8 @@ def sphere_ts(spheres, o, d, u_vol, tmin, tmax):
     a = vec.length_squared(d)[:, None]                        # (R, 1)
     # half_b = (o - c).d = o.d - c.d ; c_quad = |o-c|^2 - r^2
     od = vec.dot(o, d)[:, None]                               # (R, 1)
-    cd = _dotT(d, spheres.center)                             # (R, N) MXU
-    oc = _dotT(o, spheres.center)                             # (R, N) MXU
+    cd = _dotT(d, spheres.center)                             # (R, N)
+    oc = _dotT(o, spheres.center)                             # (R, N)
     oo = vec.length_squared(o)[:, None]                       # (R, 1)
     # per-sphere constant in COMPENSATED f32: the naive form's constant
     # rounding bias systematically flips t~tmin self-intersections
@@ -210,7 +210,7 @@ def triangle_ts_raw(triangles, o, d):
     n, v0xe2, v0xe1, v0n = triangle_constants(triangles)
     w = vec.cross(o, d)                               # (R, 3) ray moment
 
-    a = -_dotT(d, n)                                  # (R, T) MXU
+    a = -_dotT(d, n)                                  # (R, T)
     num_u = _dotT(w, triangles.e2) + _dotT(d, v0xe2)
     num_v = -(_dotT(w, triangles.e1) + _dotT(d, v0xe1))
     num_t = _dotT(o, n) - v0n[None, :]
@@ -408,8 +408,8 @@ def make_hit(scene, o, d, t, best):
 def intersect_brute(scene, o, d, u_vol, tmin=T_MIN, tmax=INF):
     """Brute-force closest hit over every primitive — the linear-scan path
     (lib/core/scene.rs:141-157) vectorized into matmuls.  For scenes up to a
-    few thousand primitives this IS the TPU fast path; the BVH exists for the
-    big ones.
+    few hundred primitives this is the XLA engine's fast path; the BVH
+    exists for the big ones.
 
     ``u_vol``: (R, num sphere volumes + num mesh volumes) free-flight
     uniforms, sphere-volume columns first.

@@ -1,62 +1,62 @@
-"""Pallas wavefront megakernel — the TPU fast path for sphere scenes.
+"""Sphere megakernel: a Pallas kernel on the Triton route.
 
-The XLA integrator (render/integrator.py) is correct for everything but pays
-an HBM round-trip of the whole wavefront state per bounce (profiling: ~90%
-of runtime is the scan while-loop, dominated by carry copies).  This kernel
-keeps a block of 2048 rays RESIDENT IN VMEM for the entire bounce chain
-(SURVEY.md section 7 stage 3):
+The XLA integrator (render/integrator.py) keeps the whole wavefront in
+device memory between bounces.  This kernel keeps each ray's state in
+registers for its entire bounce chain instead:
 
-  * grid over ray blocks; per block all state ((8, 256) f32 registers:
-    origin/direction/throughput/radiance components, alive mask) never
-    leaves the chip;
-  * the sphere loop is UNROLLED over the scene — scene constants live in
-    scalar-prefetch SMEM, so for the reference's benchmark scenes this is
-    the speed-of-light formulation (no gathers, no BVH, no HBM);
+  * a 1-D grid over blocks of ``block`` rays (a power of two); every
+    program traces its rays independently, so blocks run in any order;
+  * the sphere loop is UNROLLED over the scene.  Scene constants are one
+    ordinary whole-array input (``fparams``) read by static scalar index;
   * counter-based threefry2x32 (cipher + counter layout shared with
-    utils/rng.py): the kernel consumes byte-identical uniform draws to the
-    XLA integrator, so images agree except for ulp-level arithmetic-order
-    effects; the bounce chain is a while_loop with an all-dead early-out;
+    utils/rng.py): the kernel consumes the same uniform draws as the XLA
+    integrator, so the two engines agree up to f32 arithmetic order.  The
+    forward chain is a ``while_loop`` that exits once every ray of the
+    block is dead;
   * material lobes compile only for kinds the scene uses; per-sphere
     material KINDS are static (geometry edits recompile) while all material
-    VALUES (albedo/fuzz/ir/emission, camera, background) stay runtime inputs
-    — inverse-rendering forward passes never recompile.
+    VALUES (albedo/fuzz/ir/emission, camera, background) stay runtime
+    inputs, so inverse-rendering steps never recompile.
 
-Triangle meshes run in the same kernel as MXU matmuls: Moller-Trumbore is
-bilinear in per-ray features (d, o x d, o, 1) and per-triangle constants, so
-a (4*TB, 16) x (16, 256) matmul per chunk per sublane row intersects 256
-rays against TB triangles at once, with the winning triangle's shading
-constants fetched by a one-hot matmul (reference triangle semantics:
-lib/core/mesh.rs:146-197 Moller-Trumbore, flat face normals per quirk Q6).
+Differentiable end to end.  The backward is a second kernel that replays
+the chain UNROLLED (reverse mode cannot transpose a while_loop) and traces
+``jax.vjp`` of the same :func:`_radiance_math` into its body, so forward
+and backward share one source.  Each program writes one partial cotangent
+row; XLA sums the rows after the call (no atomics: gradients are bitwise
+reproducible run to run).  The fit step's MSE loss fuses into the grad
+kernel (:func:`mse_loss_pallas`): one kernel pass per ``value_and_grad``.
 
-Scope (static ``supports`` gate; everything else falls back to XLA):
-spheres (unrolled, <=128) + triangles (matmul chunks, <=MAX_TRIS), no
-volumes/mixes/isotropic, uniform or gradient background, Full/Clay mode.
-Differentiable end-to-end: the backward pass is a second Pallas kernel that
-replays the unrolled chain in VMEM and accumulates parameter cotangents
-(fparams + triangle C/S matrices).
+Envelope (static :func:`supports`; every other scene runs on XLA): at
+most MAX_UNROLLED_SPHERES spheres, solid or constant-density volumes, no
+triangles, single-level mix materials, uniform / gradient / skymap
+backgrounds (a skymap records each ray's escape; the texel lookup is one
+XLA gather after the kernel, :func:`_env_finish`), Full and Clay modes.
 """
 
 from __future__ import annotations
 
 import functools
-import os
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
 from ..models import backgrounds as B
 from ..models import materials as M
-from ..models.scene import (MODE_CLAY, MODE_FULL, MODE_NORMAL,
-                            MODE_RANDOM, Scene)
+from ..models.scene import MODE_CLAY, MODE_FULL, Scene
 from ..utils.rng import CIPHER_BLOCK, bits_to_uniform, threefry2x32
 from ..utils.types import T_MIN
 
-BLOCK_ROWS = 8
-BLOCK_COLS = 256
-BLOCK = BLOCK_ROWS * BLOCK_COLS  # rays per grid step
+# Rays per program and warps per program, by kernel, chosen on an H100 at
+# 512x512, spp 8, depth 6 on the benchmark scene (PERF.md).  The forward
+# is flat from 64 to 256 rays per program.  The grad kernels want one warp
+# per program: their parameter cotangents are block sums, which one warp
+# reduces with shuffles alone (32 rays x 1 warp ran 2.2x faster than
+# 128 x 2, 2.7x faster than 64 x 2).
+FWD_BLOCK, FWD_WARPS = 128, 4
+GRAD_BLOCK, GRAD_WARPS = 32, 1
 
 # float scalar-param layout
 _CAM = 0            # origin(3) horizontal(3) vertical(3) lower_left(3)
@@ -76,23 +76,23 @@ _SPHERE_STRIDE_MIX = 21
 def _sphere_stride(mix: bool, vol: bool = False) -> int:
     return (_SPHERE_STRIDE_MIX if mix else _SPHERE_STRIDE) + int(vol)
 
-MAX_UNROLLED_SPHERES = 128  # covers scenes/simple.json (102 spheres)
 
-# Triangle path: Moller-Trumbore as MXU matmuls against VMEM-resident
-# per-triangle constant matrices (see _pack_tri).  TRI_BLOCK triangles per
-# matmul chunk; MAX_TRIS bounds VMEM (constants: 16 * 5 * MAX_TRIS * 4 B).
-TRI_BLOCK = 512
-MAX_TRIS = 8192  # covers every shipped OBJ except cool_cube (~28k tris)
+MAX_UNROLLED_SPHERES = 128  # the ~100-sphere grid and simple.json class
+
+# The grad kernels unroll the sphere loop inside an unrolled bounce chain,
+# and their compile time grows faster than that product: on an H100, 5
+# spheres x 6 bounces compiled in 37 s, 5 x 12 in 153 s, and 100 x 6 had
+# not finished after 13 min.  Larger fits run on the XLA engine.
+MAX_GRAD_UNROLL = 60  # spheres x bounces
 
 
 def _mix_in_kernel_ok(scene: Scene) -> bool:
-    """Mix materials the kernels can shade: SINGLE-LEVEL mixes only.
+    """Mix materials the kernel can shade: SINGLE-LEVEL mixes only.
 
     A single-level mix resolves with ONE coin against two concrete leaves,
-    which the kernel bakes as a second per-primitive parameter set (the
+    which the kernel bakes as a second per-sphere parameter set (the
     reference's stochastic blend, lib/materials.rs:149-156).  Mix-of-mix
-    would need per-lane table gathers — those scenes keep the XLA engine
-    (resolve_mix's masked-lookup chain, ops/shade.py:47-67)."""
+    scenes keep the XLA engine (resolve_mix's chain, ops/shade.py:47-67)."""
     mats = scene.materials
     if not mats.has_mix:
         return True
@@ -103,57 +103,11 @@ def _mix_in_kernel_ok(scene: Scene) -> bool:
     return (kind[child_a] != M.MIX).all() and (kind[child_b] != M.MIX).all()
 
 
-def _mix_depth(scene: Scene) -> int:
-    """Static max nesting depth of the scene's mix DAG (0 = mix-free,
-    1 = single-level).  Cycles / depth beyond MAX_MIX_DEPTH report
-    MAX_MIX_DEPTH + 1 (unsupported — XLA's resolve_mix truncates there
-    too, ops/shade.py:59)."""
-    mats = scene.materials
-    if not mats.has_mix:
-        return 0
-    kind = np.asarray(mats.kind)
-    first = np.asarray(mats.mix_first)
-    second = np.asarray(mats.mix_second)
-
-    def depth(m, hops):
-        if kind[m] != M.MIX or hops > M.MAX_MIX_DEPTH:
-            return 0 if kind[m] != M.MIX else M.MAX_MIX_DEPTH + 1
-        return 1 + max(depth(first[m], hops + 1), depth(second[m], hops + 1))
-
-    return max(depth(m, 0) for m in range(len(kind)))
-
-
-def _mixn_cfg(scene: Scene):
-    """(mix_single, d_mix, m_pad) — which kernel mix scheme the scene
-    needs.  Single-level mixes keep the baked-S2 leaf-merge blend
-    (``mix_single``); deeper DAGs (<= MAX_MIX_DEPTH) run the in-kernel
-    resolution chain (``d_mix`` one-hot lookup rounds against a
-    (16, m_pad) per-material table — the VPU form of resolve_mix,
-    ops/shade.py:47-67; lib/materials.rs:141-157 nests Box<dyn Material>
-    arbitrarily).  Mix scenes WITH mesh volumes always take the chain
-    scheme (the mv fparams record carries the raw delegated id at slot
-    13, so a mix delegated material resolves like any other —
-    lib/volume.rs:25-31)."""
-    d = _mix_depth(scene)
-    if d == 0:
-        return False, 0, 0
-    if d == 1 and scene.num_mesh_volumes == 0:
-        return True, 0, 0
-    m_pad = -(-len(np.asarray(scene.materials.kind)) // BVH_LEAF) * BVH_LEAF
-    return False, max(d, 1), m_pad
-
-
-def _env_is_active(scene: Scene) -> bool:
-    """True when the scene actually USES the one-sample-MIS environment
-    importance sampler (render/integrator.py:106-140): the flag is set AND
-    the background is an HDRI sky AND the mode shades materials.
-
-    Routing (r4): the BRUTE kernel implements only the naive
-    escape-lookup estimator, so it refuses env-IS scenes outright; the
-    PACKET path serves them via the record + occlusion-kernel + MIS-
-    replay hybrid (_bvh_env_radiance), and dispatch picks hybrid vs the
-    XLA integrator by the measured dense-intersector boundary
-    (render.TPU_ENV_IS_MIN_PRIMS)."""
+def env_is_active(scene: Scene) -> bool:
+    """True when the scene USES the one-sample-MIS environment importance
+    sampler (render/integrator.py): the flag is set AND the background is
+    an HDRI sky AND the mode shades materials.  The kernel implements only
+    the naive escape-lookup estimator, so such scenes stay on XLA."""
     return (
         scene.settings.env_importance_sampling
         and scene.background.kind == B.SKYMAP
@@ -162,39 +116,46 @@ def _env_is_active(scene: Scene) -> bool:
 
 
 def supports(scene: Scene) -> bool:
-    """Static capability check for the DIFFERENTIABLE brute-force kernel.
+    """Static capability check for the (differentiable) sphere kernel.
 
-    Constant-density volumes (lib/volume.rs) ARE supported: the unrolled
-    sphere loop indexes each volume's free-flight uniform column statically
-    (volumes sort last in the sphere SoA), so no per-lane gather is needed.
-
-    SKYMAP backgrounds ARE supported AND differentiable: a per-lane texture
-    gather is not expressible on TPU lanes, so the kernel RECORDS each
-    ray's (miss direction, throughput) — a path misses at most once — and
-    the driver adds ``throughput * sky(dir)`` with one batched XLA gather
-    afterward (_env_finish).  The miss records ride the custom_vjp pair as
-    primal outputs, so the gather's cotangents enter the fused backward
-    kernel and HDRI fits run at full Pallas speed.
+    Constant-density volumes are supported: the unrolled sphere loop
+    indexes each volume's free-flight uniform column statically (volumes
+    sort last in the sphere SoA).  SKYMAP backgrounds are supported and
+    differentiable: the kernel RECORDS each ray's (miss direction,
+    throughput) — a path misses at most once — and the driver adds
+    ``throughput * sky(dir)`` with one batched XLA gather afterwards
+    (:func:`_env_finish`).  The miss records ride the custom_vjp pair as
+    primal outputs, so the gather's cotangents enter the grad kernel.
     """
     return (
-        len(scene.triangles) <= MAX_TRIS
-        and 0 < (len(scene.spheres) + len(scene.triangles))
-        and len(scene.spheres) <= MAX_UNROLLED_SPHERES
+        len(scene.triangles) == 0
+        and 0 < len(scene.spheres) <= MAX_UNROLLED_SPHERES
         and _mix_in_kernel_ok(scene)
-        # mesh-bounded volumes: the PACKET kernel's dense crossing scan
-        # (supports_bvh) — the brute kernel has no whole-mesh crossings
         and scene.num_mesh_volumes == 0
         and scene.background.kind in (B.UNIFORM, B.GRADIENT, B.SKYMAP)
-        and not _env_is_active(scene)  # MIS/NEE estimator is XLA-only
+        and not env_is_active(scene)
         and scene.settings.mode in (MODE_FULL, MODE_CLAY)
     )
 
 
-def supports_fwd(scene: Scene) -> bool:
-    """Alias of :func:`supports` — kept for callers that predate the
-    differentiable SKYMAP path (the forward and differentiable envelopes
-    of the brute kernel are now identical)."""
-    return supports(scene)
+def supports_grad(scene: Scene) -> bool:
+    """The grad kernels' envelope: :func:`supports`, with at most
+    MAX_GRAD_UNROLL spheres x bounces to unroll."""
+    return (supports(scene)
+            and len(scene.spheres) * scene.settings.max_ray_depth
+            <= MAX_GRAD_UNROLL)
+
+
+def supports_fused_mse(scene: Scene) -> bool:
+    """Static gate for the fused render->MSE->grad kernel: the grad
+    envelope minus skymap (the texel gather cannot run in-kernel), with
+    each pixel's samples padded to a power-of-two group of at most 256
+    contiguous rays."""
+    return (
+        supports_grad(scene)
+        and scene.background.kind in (B.UNIFORM, B.GRADIENT)
+        and scene.settings.samples_per_pixel <= 256
+    )
 
 
 # -------------------------------------------------------- counter-based RNG
@@ -219,1061 +180,34 @@ def _stream_uniforms(k0, k1, ray_id_u32, stream, n: int):
     return cols[:n]
 
 
-# ------------------------------------------------------------------ kernel
-
 def _dot3(ax, ay, az, bx, by, bz):
     return ax * bx + ay * by + az * bz
 
 
-# ------------------------------------------------- triangles (MXU matmuls)
-#
-# Moller-Trumbore is bilinear in the per-ray features (d, w = o x d, o, 1)
-# and per-triangle constants, so one (4*TB, 16) x (16, 256) matmul per
-# triangle chunk per sublane row yields a / num_u / num_v / num_t for 256
-# rays at once (the same formulation as ops/intersect.py:triangle_ts, moved
-# inside the kernel so the wavefront never leaves VMEM).  Shading constants
-# of the winning triangle come from a one-hot matmul (no gathers — small
-# gathers lower to scalar loops on TPU, docs/performance.md).
-
-TRI_DET_EPS = 1e-8  # ops/intersect.py:TRI_DET_EPS (fixes reference Q5)
-
-# S-matrix row layout (shading constants per triangle)
-_TS_NRM = 0    # rows 0-2: flat face normal (reference Q6 semantics)
-_TS_AL = 3     # rows 3-5: albedo
-_TS_FUZZ = 6
-_TS_IR = 7
-_TS_EM = 8     # rows 8-10: emission (premultiplied color*strength)
-_TS_LAM = 11   # rows 11-15: material-kind one-hot
-_TS_MET = 12
-_TS_DIE = 13
-_TS_EMI = 14
-_TS_ISO = 15
-
-# S2-matrix row layout (mix scenes only): the SECOND resolved mix leaf +
-# the mix coin threshold, one-hot matmul-gathered alongside S so the shade
-# stage can blend the two leaves per ray with the bounce's mix coin.
-_T2_FAC = 0
-_T2_AL = 1     # rows 1-3
-_T2_FUZZ = 4
-_T2_IR = 5
-_T2_EM = 6     # rows 6-8
-_T2_LAM = 9    # rows 9-13: leaf-B kind one-hot
-_T2_MET = 10
-_T2_DIE = 11
-_T2_EMI = 12
-_T2_ISO = 13
-
-
-def _tri_sizes(n_tris: int) -> tuple[int, int]:
-    """-> (tb, t_pad): chunk width and padded triangle count."""
-    tb = min(TRI_BLOCK, -(-n_tris // 128) * 128)
-    t_pad = -(-n_tris // tb) * tb
-    return tb, t_pad
-
-
-def _pack_tri(scene: Scene, tb: int, mix: bool = False):
-    """Scene triangles -> (C, S[, S2]) constant matrices (traced jnp;
-    building them from the scene pytree keeps material/geometry grads
-    flowing).
-
-    C: (16, 4*T_pad) f32.  Lane group c*4TB..(c+1)*4TB holds chunk c's
-    [a | num_u | num_v | num_t] coefficient sections (TB lanes each), rows
-    indexed by the ray feature vector [d, w, o, 1, 0...].  Padding triangles
-    are all-zero -> a == 0 -> rejected by the determinant epsilon.
-    S: (16, T_pad) f32 shading constants (_TS_* row layout); with ``mix``
-    its material rows hold the FIRST resolved mix leaf (mix_first == self
-    for non-mix rows) and S2 (16, T_pad) carries the second leaf + factor
-    (_T2_* row layout).
-    """
-    tris = scene.triangles
-    t = tris.v0.shape[0]
-    t_pad = -(-t // tb) * tb
-    f32 = jnp.float32
-
-    n = jnp.cross(tris.e1, tris.e2)                 # (T, 3) unnormalized
-    v0xe2 = jnp.cross(tris.v0, tris.e2)
-    v0xe1 = jnp.cross(tris.v0, tris.e1)
-    v0n = jnp.sum(tris.v0 * n, axis=-1)
-    zeros = jnp.zeros((t,), f32)
-
-    def rows16(*cols):
-        cols = list(cols) + [zeros] * (16 - len(cols))
-        return jnp.stack(cols, axis=0).astype(f32)  # (16, T)
-
-    ca = rows16(-n[:, 0], -n[:, 1], -n[:, 2])
-    cu = rows16(v0xe2[:, 0], v0xe2[:, 1], v0xe2[:, 2],
-                tris.e2[:, 0], tris.e2[:, 1], tris.e2[:, 2])
-    cv = rows16(-v0xe1[:, 0], -v0xe1[:, 1], -v0xe1[:, 2],
-                -tris.e1[:, 0], -tris.e1[:, 1], -tris.e1[:, 2])
-    ct = rows16(zeros, zeros, zeros, zeros, zeros, zeros,
-                n[:, 0], n[:, 1], n[:, 2], -v0n)
-
-    pad = t_pad - t
-    if pad:
-        ca, cu, cv, ct = (jnp.pad(m, ((0, 0), (0, pad)))
-                          for m in (ca, cu, cv, ct))
-    parts = []
-    for c in range(t_pad // tb):
-        sl = slice(c * tb, (c + 1) * tb)
-        parts += [ca[:, sl], cu[:, sl], cv[:, sl], ct[:, sl]]
-    c_mat = jnp.concatenate(parts, axis=1)          # (16, 4*T_pad)
-
-    mats = scene.materials
-    mid = tris.material
-    # leaf A = mix_first (self for non-mix rows); identity when mix-free
-    mid_a = mats.mix_first[mid] if mix else mid
-    al = mats.albedo[mid_a]
-    fz = mats.fuzz[mid_a]
-    ir = mats.ir[mid_a]
-    em = mats.emission[mid_a]
-    kind = mats.kind[mid_a]
-    s_mat = rows16(
-        tris.normal[:, 0], tris.normal[:, 1], tris.normal[:, 2],
-        al[:, 0], al[:, 1], al[:, 2], fz, ir,
-        em[:, 0], em[:, 1], em[:, 2],
-        (kind == M.LAMBERTIAN).astype(f32),
-        (kind == M.METAL).astype(f32),
-        (kind == M.DIELECTRIC).astype(f32),
-        (kind == M.EMISSION).astype(f32),
-        (kind == M.ISOTROPIC).astype(f32),
-    )
-    if pad:
-        s_mat = jnp.pad(s_mat, ((0, 0), (0, pad)))
-    if not mix:
-        return c_mat, s_mat
-    mid_b = mats.mix_second[mid]
-    al2 = mats.albedo[mid_b]
-    kind2 = mats.kind[mid_b]
-    em2 = mats.emission[mid_b]
-    s2_mat = rows16(
-        mats.mix_factor[mid],
-        al2[:, 0], al2[:, 1], al2[:, 2],
-        mats.fuzz[mid_b], mats.ir[mid_b],
-        em2[:, 0], em2[:, 1], em2[:, 2],
-        (kind2 == M.LAMBERTIAN).astype(f32),
-        (kind2 == M.METAL).astype(f32),
-        (kind2 == M.DIELECTRIC).astype(f32),
-        (kind2 == M.EMISSION).astype(f32),
-        (kind2 == M.ISOTROPIC).astype(f32),
-    )
-    if pad:
-        s2_mat = jnp.pad(s2_mat, ((0, 0), (0, pad)))
-    return c_mat, s_mat, s2_mat
-
-
-def _tri_kinds(scene: Scene) -> tuple:
-    """Static sorted tuple of LEAF material-kind ids used by triangles
-    (single-level mixes resolve to their two children)."""
-    kinds = np.asarray(scene.materials.kind)
-    first = np.asarray(scene.materials.mix_first)
-    second = np.asarray(scene.materials.mix_second)
-    out = set()
-    for m in np.asarray(scene.triangles.material):
-        if kinds[m] == M.MIX:
-            out.add(int(kinds[first[m]]))
-            out.add(int(kinds[second[m]]))
-        else:
-            out.add(int(kinds[m]))
-    return tuple(sorted(out))
-
-
-def _tri_intersect(tri_c, tri_s, tb, ox, oy, oz, dx, dy, dz, tri_s2=None):
-    """Closest triangle hit for the whole (8, 256) ray block.
-
-    -> (t_tri (8,256), params: list of 16 (8,256) arrays, _TS_* layout,
-    params2: list of 14 (_T2_* layout) or None when ``tri_s2`` is None).
-    All matmuls run at HIGHEST precision — bf16 passes lose hits to
-    catastrophic cancellation in the determinant (utils/types.py note).
-    """
-    hi = jax.lax.Precision.HIGHEST
-    t_pad = tri_c.shape[1] // 4
-    chunks = t_pad // tb
-    rows, cols = ox.shape
-
-    # ray moment w = o x d, shared by num_u / num_v
-    wx = oy * dz - oz * dy
-    wy = oz * dx - ox * dz
-    wz = ox * dy - oy * dx
-
-    ones = jnp.ones((1, cols), jnp.float32)
-    zeros6 = jnp.zeros((6, cols), jnp.float32)
-    t_rows, par_rows, par2_rows = [], [], []
-    for r in range(rows):
-        def row(v, r=r):
-            return v[r:r + 1, :]
-
-        x_feat = jnp.concatenate(
-            [row(dx), row(dy), row(dz), row(wx), row(wy), row(wz),
-             row(ox), row(oy), row(oz), ones, zeros6], axis=0)  # (16, 256)
-
-        t_best = jnp.full((1, cols), jnp.inf, jnp.float32)
-        par = jnp.zeros((16, cols), jnp.float32)
-        par2 = jnp.zeros((16, cols), jnp.float32) if tri_s2 is not None \
-            else None
-        iota = jax.lax.broadcasted_iota(jnp.int32, (tb, cols), 0)
-        for c in range(chunks):
-            c_chunk = tri_c[:, c * 4 * tb:(c + 1) * 4 * tb]  # (16, 4TB)
-            y = jax.lax.dot_general(
-                c_chunk, x_feat, (((0,), (0,)), ((), ())),
-                precision=hi, preferred_element_type=jnp.float32,
-            )                                                 # (4TB, 256)
-            a = y[0 * tb:1 * tb]
-            num_u = y[1 * tb:2 * tb]
-            num_v = y[2 * tb:3 * tb]
-            num_t = y[3 * tb:4 * tb]
-            ok = jnp.abs(a) > TRI_DET_EPS
-            f = 1.0 / jnp.where(ok, a, 1.0)  # safe: no inf primal under vjp
-            u = f * num_u
-            v = f * num_v
-            tt = f * num_t
-            valid = (ok & (u >= 0.0) & (u <= 1.0) & (v >= 0.0)
-                     & (u + v <= 1.0) & (tt > T_MIN))
-            tt = jnp.where(valid, tt, jnp.inf)
-            t_min = jnp.min(tt, axis=0, keepdims=True)        # (1, 256)
-            improved = t_min < t_best
-            winner = jnp.min(jnp.where(tt == t_min, iota, tb),
-                             axis=0, keepdims=True)           # (1, 256)
-            onehot = jnp.where((iota == winner) & (tt == t_min), 1.0, 0.0)
-            s_chunk = tri_s[:, c * tb:(c + 1) * tb]           # (16, TB)
-            p_chunk = jax.lax.dot_general(
-                s_chunk, onehot, (((1,), (0,)), ((), ())),
-                precision=hi, preferred_element_type=jnp.float32,
-            )                                                 # (16, 256)
-            par = jnp.where(improved, p_chunk, par)
-            if par2 is not None:
-                s2_chunk = tri_s2[:, c * tb:(c + 1) * tb]
-                p2_chunk = jax.lax.dot_general(
-                    s2_chunk, onehot, (((1,), (0,)), ((), ())),
-                    precision=hi, preferred_element_type=jnp.float32,
-                )
-                par2 = jnp.where(improved, p2_chunk, par2)
-            t_best = jnp.minimum(t_best, t_min)
-        t_rows.append(t_best)
-        par_rows.append(par)
-        if par2 is not None:
-            par2_rows.append(par2)
-
-    t_tri = jnp.concatenate(t_rows, axis=0)                   # (8, 256)
-    params = [
-        jnp.concatenate([pr[j:j + 1] for pr in par_rows], axis=0)
-        for j in range(16)
-    ]
-    if tri_s2 is None:
-        return t_tri, params, None
-    params2 = [
-        jnp.concatenate([pr[j:j + 1] for pr in par2_rows], axis=0)
-        for j in range(14)
-    ]
-    return t_tri, params, params2
-
-
-# ------------------------------------------- chunk-leaf BVH (packet traversal)
-#
-# TPU translation of the reference's per-ray recursive BVH descent
-# (lib/core/bvh.rs:146-172) for scenes too big to brute-force in VMEM:
-# per-lane node cursors would need per-lane gathers (which lower to scalar
-# loops on TPU), so a whole (8, 256) ray block shares ONE scalar node cursor
-# (SMEM node table) — the packet traversal of classic CPU SIMD ray tracing,
-# which is exactly the right translation for a 1024-lane vector machine.
-# The block descends (hit_link) when ANY live ray hits the node AABB
-# (VPU slab test, per-ray t-pruned) and skips (miss_link) otherwise.
-# Leaves are dense chunks of <=128 primitives of ONE kind, intersected on
-# the MXU with the same bilinear forms as the brute-force paths above.
-# Spheres and triangles live in separate trees; the sphere pass's best t
-# seeds the triangle pass's pruning.  Forward-only (the differentiable
-# custom_vjp path keeps the brute-force kernels; bigger scenes differentiate
-# via the XLA engine).
-
-BVH_LEAF = 128            # chunk width (one VREG lane group)
-MAX_BVH_SPHERES = 32768   # sph_s VMEM: 16 f32/sphere = 2.1 MB at max
-MAX_BVH_TRIS = 32768      # tri_g+tri_s VMEM: 32 f32/tri = 4.2 MB at max
-
-# Unified shading-constant row layout for both chunk kinds (the winner's
-# constants ride the traversal carry; ``win_sph`` selects interpretation of
-# the GEO rows: sphere = center + 1/r, triangle = flat face normal).
-# The chunk intersectors use the DIRECT intersection forms (oc = o - c,
-# s = o - v0) — NOT the expanded bilinear/matmul forms of the brute paths:
-# secondary rays originate ON primitive surfaces, where the expansion's
-# catastrophic cancellation (|o|^2 - 2 o.c + |c|^2 with |o| >> |o-c|)
-# perturbs the near-zero self-hit root by more than T_MIN and flips
-# accept/reject decisions.  The direct forms match the XLA BVH path's
-# gather_sphere_t / gather_triangle_t (ops/intersect.py) arithmetic.
-_BS_GEO = 0     # rows 0-2: sphere center | triangle normal
-_BS_RAD = 3     # sphere radius | triangle 0 (also marks padding lanes)
-_BS_AL = 4      # rows 4-6: albedo
-_BS_FUZZ = 7
-_BS_IR = 8
-_BS_EM = 9      # rows 9-11: emission (premultiplied)
-_BS_LAM = 12    # rows 12-15: material-kind one-hot
-_BS_MET = 13
-_BS_DIE = 14
-_BS_EMI = 15
-
-# Triangle geometry rows (tri_g), transposed to sublanes per leaf visit
-_TG_V0 = 0      # rows 0-2
-_TG_E1 = 3      # rows 3-5
-_TG_E2 = 6      # rows 6-8
-
-
-# Volumes in the packet kernel: each volume draws its OWN free-flight
-# uniform per bounce (reference: one uniform per Volume::hit,
-# lib/volume.rs:57); the kernel precomputes all of them per ray and the
-# volume-chunk leaf selects by the candidate's static ordinal row, so the
-# count is capped to bound registers/uniform columns.
-MAX_BVH_VOLUMES = 8
-
-# MESH-bounded volumes (r4): per volume, a dense two-pass crossing scan
-# over its boundary-triangle chunks (entry at ANY t — possibly negative,
-# the ray origin may be inside the medium — then exit >= entry + T_MIN),
-# followed by the exponential free flight.  Dense because tree traversal
-# cannot find negative-t crossings (its slab floor is T_MIN).  The scan is
-# a fori_loop per volume per pass, so the count stays capped.
-MAX_BVH_MESH_VOLUMES = 4
-# fparams tail for the BVH kernel (after the 20-slot head): per mesh
-# volume [nid, al rgb, fuzz, ir, em rgb, lam, met, die, emi, mid] — the
-# delegated material's values + kind one-hots (Isotropic = the complement,
-# as in the _BS_ rows) + the RAW delegated material id (slot 13, read only
-# by the nested-mix resolution chain — lib/volume.rs:25-31 boundaries can
-# carry ANY material incl. mixes)
-_MV = 20
-_MV_STRIDE = 14
-
-
-def supports_bvh(scene: Scene) -> bool:
-    """Static capability gate for the packet-traversal kernel (scenes
-    passing :func:`supports` use the brute-force kernel instead, which is
-    faster below its size limits).  Differentiable via record+replay
-    (_bvh_cvjp)."""
-    cb = scene.cbvh
-    return (
-        cb is not None
-        and cb.leaf_size == BVH_LEAF
-        and 0 < scene.num_primitives
-        and len(scene.spheres) <= MAX_BVH_SPHERES
-        and len(scene.triangles) <= MAX_BVH_TRIS
-        and scene.spheres.num_volumes <= MAX_BVH_VOLUMES
-        # mesh-bounded volumes (r4): dense crossing scan over mv chunks;
-        # needs the mv permutation (cbvh objects built before r4 lack it)
-        # and stays out of the mix matrix for now
-        # mix + mesh-volume combos SUPPORTED since r5: mix scenes with
-        # mesh volumes route through the nested-mix resolution chain
-        # (the mv record carries its raw delegated id — _mixn_cfg)
-        and scene.num_mesh_volumes <= MAX_BVH_MESH_VOLUMES
-        and (scene.num_mesh_volumes == 0
-             or len(cb.mv_spans) == scene.num_mesh_volumes)
-        # volume scenes need the third (volume-sphere) chunk tree — cbvh
-        # objects built before round 3 lack it
-        and (scene.spheres.num_volumes == 0 or cb.n_vol_chunks > 0)
-        # single-level mixes SUPPORTED (r4): each chunk tree carries a
-        # second shading matrix (leaf B + mix factor, same _BS_ row
-        # layout) and the leaf merge blends the two one-hot fetches with
-        # the bounce's mix coin BEFORE the winner rides the carry — the
-        # carry stays 16 rows (VERDICT r3 #5; lib/materials.rs:141-157).
-        # NESTED mixes SUPPORTED (r5, VERDICT r4 #6): the carry holds the
-        # winner's RAW material id and the shade stage resolves the mix
-        # DAG with d_mix one-hot lookup rounds against a per-material
-        # VMEM table (_mixn_resolve) — the in-kernel form of XLA's
-        # resolve_mix chain, same coins, bitwise-equal leaves.  Depth is
-        # capped at MAX_MIX_DEPTH exactly like ops/shade.py:59.
-        and _mix_depth(scene) <= M.MAX_MIX_DEPTH
-        and scene.background.kind in (B.UNIFORM, B.GRADIENT, B.SKYMAP)
-        # env importance sampling SUPPORTED via the r4 hybrid (record
-        # kernel walk + occlusion-kernel shadow rays + XLA MIS replay,
-        # _bvh_env_radiance) — except combined with mesh volumes, whose
-        # stochastic occlusion the shadow kernel does not model
-        and not (_env_is_active(scene) and scene.num_mesh_volumes > 0)
-        # Normal/Random inspection views run a single-intersection pass
-        # in-kernel (r5, VERDICT r4 weak #7) for UNIFORM/GRADIENT
-        # backgrounds (skymap debug would need the miss-record machinery
-        # for a non-perf path -> XLA)
-        and (scene.settings.mode in (MODE_FULL, MODE_CLAY)
-             or (scene.settings.mode in (MODE_NORMAL, MODE_RANDOM)
-                 and scene.background.kind in (B.UNIFORM, B.GRADIENT)))
-    )
-
-
-def _stack16(n, entries):
-    """(16, n) f32 from a {row: (n,) array} dict (missing rows zero)."""
-    z = jnp.zeros((n,), jnp.float32)
-    return jnp.stack([entries.get(i, z) for i in range(16)], axis=0)
-
-
-def _chunk_rows(m, lf):
-    """(16, n_chunks * lf) -> (n_chunks * 16, lf): chunk c's matrix at row
-    block [c*16, (c+1)*16) so the kernel slices chunks on the SUBLANE dim
-    (dynamic sublane offsets are cheap; dynamic lane offsets are not)."""
-    n_chunks = m.shape[1] // lf
-    return (
-        m.reshape(16, n_chunks, lf).transpose(1, 0, 2).reshape(-1, lf)
-    )
-
-
-def _mat_rows(scene: Scene, mid, pad):
-    """Common shading rows (_BS_AL.._BS_EMI) for permuted primitives."""
-    mats = scene.materials
-    al = mats.albedo[mid]
-    em = mats.emission[mid]
-    kind = mats.kind[mid]
-    f32 = jnp.float32
-    rows = {
-        _BS_AL + 0: al[:, 0], _BS_AL + 1: al[:, 1], _BS_AL + 2: al[:, 2],
-        _BS_FUZZ: mats.fuzz[mid], _BS_IR: mats.ir[mid],
-        _BS_EM + 0: em[:, 0], _BS_EM + 1: em[:, 1], _BS_EM + 2: em[:, 2],
-        _BS_LAM: (kind == M.LAMBERTIAN).astype(f32),
-        _BS_MET: (kind == M.METAL).astype(f32),
-        _BS_DIE: (kind == M.DIELECTRIC).astype(f32),
-        _BS_EMI: (kind == M.EMISSION).astype(f32),
-    }
-    return rows
-
-
-def _pack_sphere_chunks(scene: Scene, perm, mixn: bool = False):
-    """Permuted sphere chunks -> s (n_chunks*16, 128), the _BS_* shading
-    rows (center + radius double as the intersection constants).  Padding
-    lanes are all-zero (radius == 0 marks them; the leaf kernel masks
-    zero-radius candidates out).
-
-    Mix scenes (materials.has_mix): the material rows hold the FIRST
-    resolved mix leaf (mix_first == self for non-mix rows), exactly like
-    the brute kernel's base slots; the second leaf rides the S2 matrix
-    (:func:`_pack_chunks_s2`).
-
-    ``mixn`` (NESTED mixes, r5): the material rows carry only the RAW
-    material id at row _BS_AL — the shade stage resolves the mix DAG and
-    fetches the leaf's constants from the per-material table
-    (:func:`_pack_mixn_table`) instead."""
-    lf = BVH_LEAF
-    perm = jnp.asarray(perm)
-    idx = jnp.maximum(perm, 0)
-    pad = perm < 0
-    c = scene.spheres.center[idx]
-    r = scene.spheres.radius[idx]
-    n = idx.shape[0]
-
-    mid = scene.spheres.material[idx]
-    if mixn:
-        rows = {_BS_AL: mid.astype(jnp.float32)}
-    else:
-        if scene.materials.has_mix:
-            mid = scene.materials.mix_first[mid]
-        rows = _mat_rows(scene, mid, pad)
-    rows.update({
-        _BS_GEO + 0: c[:, 0], _BS_GEO + 1: c[:, 1], _BS_GEO + 2: c[:, 2],
-        _BS_RAD: r,
-    })
-    s_mat = jnp.where(pad[None, :], 0.0, _stack16(n, rows))
-    return _chunk_rows(s_mat, lf)
-
-
-# S2-matrix row 0 (mix scenes): the mix-coin threshold.  Rows
-# _BS_AL.._BS_EMI mirror the S layout but hold the SECOND resolved mix
-# leaf, so the leaf merge blends S and S2 fetches with one row select
-# (u_mix >= factor -> leaf A, lib/materials.rs:151).  Non-mix primitives
-# bake factor == 0 and leaf B == leaf A, making the blend the identity.
-_S2_FAC = 0
-
-
-def _pack_chunks_s2(scene: Scene, perm, tri: bool = False):
-    """Permuted chunks -> s2 (n_chunks*16, 128): leaf-B material rows in
-    the _BS_* layout + the mix factor at row ``_S2_FAC`` (geometry rows
-    unused — the blend keeps S's geometry)."""
-    lf = BVH_LEAF
-    perm = jnp.asarray(perm)
-    idx = jnp.maximum(perm, 0)
-    pad = perm < 0
-    n = idx.shape[0]
-    mats = scene.materials
-    mid = (scene.triangles.material if tri
-           else scene.spheres.material)[idx]
-    rows = _mat_rows(scene, mats.mix_second[mid], pad)
-    rows[_S2_FAC] = mats.mix_factor[mid]
-    s2 = jnp.where(pad[None, :], 0.0, _stack16(n, rows))
-    return _chunk_rows(s2, lf)
-
-
-# Per-material table rows for NESTED-mix scenes (r5): the shade stage
-# resolves the winner's mix DAG with d_mix one-hot lookup rounds against
-# this (16, m_pad) matrix — rows 0-3 drive the chain (XLA resolve_mix's
-# kind/factor/first/second lookups, ops/shade.py:60-67), rows 4-15 are the
-# resolved LEAF's shading constants at the same _BS_ offsets the carry
-# uses, so the final fetch drops straight into the par rows.
-_MT_ISMIX = 0
-_MT_FAC = 1
-_MT_FIRST = 2
-_MT_SECOND = 3
-
-
-def _pack_mixn_table(scene: Scene, m_pad: int):
-    """Material table -> (16, m_pad) f32 for the in-kernel mix-resolution
-    chain.  Ids are exact small-int f32s; pad columns are all-zero
-    (never selected — every reachable id is < len(kind))."""
-    mats = scene.materials
-    mid = jnp.arange(mats.kind.shape[0], dtype=jnp.int32)
-    f32 = jnp.float32
-    rows = _mat_rows(scene, mid, None)
-    rows[_MT_ISMIX] = (mats.kind[mid] == M.MIX).astype(f32)
-    rows[_MT_FAC] = mats.mix_factor[mid]
-    rows[_MT_FIRST] = mats.mix_first[mid].astype(f32)
-    rows[_MT_SECOND] = mats.mix_second[mid].astype(f32)
-    mt = _stack16(mid.shape[0], rows)
-    return jnp.pad(mt, ((0, 0), (0, m_pad - mt.shape[1])))
-
-
-# Volume-chunk extra rows (second constant matrix, _VX_* layout): the
-# free-flight parameters that do not fit the 16 _BS_ shading rows.
-_VX_NID = 0   # neg_inv_density
-_VX_ORD = 1   # volume ordinal (sphere row - num_solid), as f32
-
-
-def _pack_vol_chunks(scene: Scene, perm, mixn: bool = False):
-    """Permuted VOLUME-sphere chunks -> (s (nc*16, 128) _BS_ shading rows
-    — GEO/RAD hold the boundary sphere, material rows the delegated
-    material — and x (nc*16, 128) _VX_* extra rows).  Padding lanes are
-    all-zero (radius == 0).  ``mixn``: raw delegated-material id at row
-    _BS_AL (resolved + fetched at the shade stage)."""
-    lf = BVH_LEAF
-    perm = jnp.asarray(perm)
-    idx = jnp.maximum(perm, 0)
-    pad = perm < 0
-    c = scene.spheres.center[idx]
-    r = scene.spheres.radius[idx]
-    n = idx.shape[0]
-
-    mid = scene.spheres.material[idx]
-    if mixn:
-        rows = {_BS_AL: mid.astype(jnp.float32)}
-    else:
-        if scene.materials.has_mix:
-            mid = scene.materials.mix_first[mid]
-        rows = _mat_rows(scene, mid, pad)
-    rows.update({
-        _BS_GEO + 0: c[:, 0], _BS_GEO + 1: c[:, 1], _BS_GEO + 2: c[:, 2],
-        _BS_RAD: r,
-    })
-    s_mat = jnp.where(pad[None, :], 0.0, _stack16(n, rows))
-
-    ordinal = (idx - scene.spheres.num_solid).astype(jnp.float32)
-    x_mat = _stack16(n, {
-        _VX_NID: scene.spheres.neg_inv_density[idx],
-        _VX_ORD: ordinal,
-    })
-    x_mat = jnp.where(pad[None, :], 0.0, x_mat)
-    return _chunk_rows(s_mat, lf), _chunk_rows(x_mat, lf)
-
-
-def _vol_chunk_hit(s_ref, x_ref, chunk, o3, d3, a, ray_len, u_vols,
-                   t_best, par, win, code=None, code_base=0,
-                   s2_ref=None, u_mix=None):
-    """Constant-density volume chunk: boundary window from the quadratic,
-    exponential free flight with each candidate's OWN per-ray uniform
-    (selected by the candidate's ordinal row from the precomputed
-    ``u_vols`` list) — the exact op order of the brute kernel's volume
-    branch / ops/intersect.py sphere_ts (lib/volume.rs:35-73)."""
-    base = pl.multiple_of(chunk * 16, 16)
-    s_m = s_ref[pl.ds(base, 16), :]                        # (16, 128)
-    x_m = x_ref[pl.ds(base, 16), :]
-    s2_m = s2_ref[pl.ds(base, 16), :] if s2_ref is not None else None
-    g = _to_sublanes(s_m)                                  # (128, 16)
-    x = _to_sublanes(x_m)
-    cx = g[:, _BS_GEO + 0:_BS_GEO + 1]
-    cy = g[:, _BS_GEO + 1:_BS_GEO + 2]
-    cz = g[:, _BS_GEO + 2:_BS_GEO + 3]
-    rad = g[:, _BS_RAD:_BS_RAD + 1]
-    nid = x[:, _VX_NID:_VX_NID + 1]
-    ordv = x[:, _VX_ORD:_VX_ORD + 1]
-    live = rad > 0.0
-    ox, oy, oz = o3
-    dx, dy, dz = d3
-    code_val = chunk * BVH_LEAF + code_base if code is not None else None
-    tb_rows, par_rows, win_rows, code_rows = [], [], [], []
-    for r in range(t_best.shape[0]):
-        def row(v, r=r):
-            return v[r:r + 1, :]
-        ocx = row(ox) - cx
-        ocy = row(oy) - cy
-        ocz = row(oz) - cz
-        hb = ocx * row(dx) + ocy * row(dy) + ocz * row(dz)
-        cq = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad
-        disc = hb * hb - row(a) * cq
-        ok = disc >= 0.0
-        sq = jnp.sqrt(jnp.maximum(disc, 0.0))
-        t1 = (-hb - sq) / row(a)
-        t2 = (-hb + sq) / row(a)
-        # each candidate's free-flight uniform: select the ordinal's column
-        u = jnp.zeros_like(t1)
-        for v, uv in enumerate(u_vols):
-            u = jnp.where(ordv == float(v), row(uv), u)
-        h1 = jnp.maximum(t1, T_MIN)
-        h2 = jnp.where(t2 >= t1 + T_MIN, t2, jnp.inf)
-        valid = ok & live & (h1 < h2)
-        h1 = jnp.maximum(h1, 0.0)
-        dist_inside = (h2 - h1) * row(ray_len)
-        hit_dist = nid * jnp.log(jnp.maximum(u, 1e-37))
-        ti = h1 + hit_dist / row(ray_len)
-        ti = jnp.where(valid & (hit_dist <= dist_inside), ti, jnp.inf)
-        tb_r = t_best[r:r + 1]
-        ti = jnp.where(ti < tb_r, ti, jnp.inf)
-        _merge_leaf_rows(ti, s_m, t_best, par, win, 2.0, r,
-                         tb_rows, par_rows, win_rows,
-                         code, code_val, code_rows,
-                         s2_m, row(u_mix) if s2_m is not None else None)
-    return _merge_chunk_rows(t_best, par, win, tb_rows, par_rows, win_rows,
-                             code, code_rows)
-
-
-def _pack_tri_chunks(scene: Scene, perm, mixn: bool = False):
-    """Permuted triangle chunks -> (g (n_chunks*16, 128) geometry rows
-    (_TG_* layout: v0/e1/e2 for the direct Moller-Trumbore form),
-    s (n_chunks*16, 128) shading rows (_BS_* layout)).  Padding lanes are
-    all-zero -> determinant a == 0 -> rejected by the epsilon.
-    ``mixn``: raw material id at row _BS_AL (nested mixes, see
-    :func:`_pack_sphere_chunks`)."""
-    lf = BVH_LEAF
-    perm = jnp.asarray(perm)
-    idx = jnp.maximum(perm, 0)
-    pad = perm < 0
-    tris = scene.triangles
-    v0 = tris.v0[idx]
-    e1 = tris.e1[idx]
-    e2 = tris.e2[idx]
-    n = idx.shape[0]
-    pad2 = pad[None, :]
-
-    g_mat = _stack16(n, {
-        _TG_V0 + 0: v0[:, 0], _TG_V0 + 1: v0[:, 1], _TG_V0 + 2: v0[:, 2],
-        _TG_E1 + 0: e1[:, 0], _TG_E1 + 1: e1[:, 1], _TG_E1 + 2: e1[:, 2],
-        _TG_E2 + 0: e2[:, 0], _TG_E2 + 1: e2[:, 1], _TG_E2 + 2: e2[:, 2],
-    })
-    g_mat = jnp.where(pad2, 0.0, g_mat)
-
-    mid = tris.material[idx]
-    if mixn:
-        rows = {_BS_AL: mid.astype(jnp.float32)}
-    else:
-        if scene.materials.has_mix:
-            mid = scene.materials.mix_first[mid]
-        rows = _mat_rows(scene, mid, pad)
-    nrm = tris.normal[idx]
-    rows.update({_BS_GEO + 0: nrm[:, 0], _BS_GEO + 1: nrm[:, 1],
-                 _BS_GEO + 2: nrm[:, 2]})
-    s_mat = jnp.where(pad2, 0.0, _stack16(n, rows))
-    return _chunk_rows(g_mat, lf), _chunk_rows(s_mat, lf)
-
-
-def _pack_mv_chunks(scene: Scene, perm):
-    """Permuted MESH-VOLUME boundary triangles -> g (n_chunks*16, 128)
-    geometry rows (_TG_ layout).  Shading/material constants ride fparams
-    instead (one record per volume, _MV layout) — a crossing scan needs
-    only geometry.  Padding lanes are all-zero -> determinant == 0 ->
-    rejected."""
-    lf = BVH_LEAF
-    perm = jnp.asarray(perm)
-    idx = jnp.maximum(perm, 0)
-    pad = perm < 0
-    tris = scene.triangles
-    v0 = tris.v0[idx]
-    e1 = tris.e1[idx]
-    e2 = tris.e2[idx]
-    n = idx.shape[0]
-    g_mat = _stack16(n, {
-        _TG_V0 + 0: v0[:, 0], _TG_V0 + 1: v0[:, 1], _TG_V0 + 2: v0[:, 2],
-        _TG_E1 + 0: e1[:, 0], _TG_E1 + 1: e1[:, 1], _TG_E1 + 2: e1[:, 2],
-        _TG_E2 + 0: e2[:, 0], _TG_E2 + 1: e2[:, 1], _TG_E2 + 2: e2[:, 2],
-    })
-    g_mat = jnp.where(pad[None, :], 0.0, g_mat)
-    return _chunk_rows(g_mat, lf)
-
-
-def _to_sublanes(m):
-    """(16, 128) -> (128, 16) via an identity matmul — per-primitive
-    constants move from lanes to sublanes so they broadcast against
-    (1, rays) row slices as (128, 1) columns.  (A plain transpose; the MXU
-    formulation avoids relying on a vector transpose unit.)"""
-    eye = jnp.eye(16, dtype=jnp.float32)
-    return jax.lax.dot_general(
-        m, eye, (((0,), (0,)), ((), ())),
-        precision=jax.lax.Precision.HIGHEST,
-        preferred_element_type=jnp.float32)
-
-
-def _merge_chunk_rows(t_best, par, win, tb_rows, par_rows, win_rows,
-                      code=None, code_rows=None):
-    """Reassemble the (8, 256) carries from per-row merge results."""
-    t_best = jnp.concatenate(tb_rows, axis=0)
-    win = jnp.concatenate(win_rows, axis=0)
-    new_par = []
-    for j in range(16):
-        new_par.append(jnp.concatenate(
-            [jnp.where(imp, p[j:j + 1], par[j][r:r + 1])
-             for r, (imp, p) in enumerate(par_rows)],
-            axis=0))
-    if code is None:
-        return t_best, tuple(new_par), win
-    return t_best, tuple(new_par), win, jnp.concatenate(code_rows, axis=0)
-
-
-def _mixn_fetch(mt, mid):
-    """One-hot table fetch: (16, m_pad) x onehot(mid) -> 16 (R, cols)
-    rows.  ``mid`` is (R, cols) f32 material ids (exact small ints); one
-    (16, m_pad) x (m_pad, cols) dot per sublane row — the MXU form of a
-    per-lane gather (small-table gathers lower to scalar loops on TPU,
-    utils/lookup.py)."""
-    hi = jax.lax.Precision.HIGHEST
-    m_pad = mt.shape[1]
-    nrow, cols = mid.shape
-    # integer iota: Mosaic's tpu.iota only produces int vectors (an f32
-    # iota verifies in interpret mode but fails hardware lowering); the
-    # id row is an exact small-int f32, so the cast is lossless
-    iota = jax.lax.broadcasted_iota(jnp.int32, (m_pad, cols), 0)
-    per_row = []
-    for r in range(nrow):
-        oh = jnp.where(iota == mid[r:r + 1].astype(jnp.int32), 1.0, 0.0)
-        per_row.append(jax.lax.dot_general(
-            mt, oh, (((1,), (0,)), ((), ())),
-            precision=hi, preferred_element_type=jnp.float32))
-    return [jnp.concatenate([q[j:j + 1] for q in per_row], axis=0)
-            for j in range(16)]
-
-
-def _mixn_resolve(mt, par, coins, d_mix):
-    """Shade-stage nested-mix resolution (r5, VERDICT r4 #6): the carry's
-    _BS_AL row holds the winner's RAW material id; run ``d_mix`` rounds of
-    the resolve_mix chain (ops/shade.py:60-67 — u >= factor picks the
-    FIRST child, lib/materials.rs:151; non-mix ids are fixed points), then
-    fetch the leaf's shading constants into the par rows.  Coin columns
-    0..d_mix-1 of the bounce's uniform block — positional, so skipping the
-    no-op deeper levels stays bitwise-aligned with the XLA engine."""
-    mid = par[_BS_AL]
-    for lvl in range(d_mix):
-        q = _mixn_fetch(mt, mid)
-        child = jnp.where(coins[lvl] >= q[_MT_FAC],
-                          q[_MT_FIRST], q[_MT_SECOND])
-        mid = jnp.where(q[_MT_ISMIX] > 0.5, child, mid)
-    q = _mixn_fetch(mt, mid)
-    return par[:_BS_AL] + tuple(q[_BS_AL:])
-
-
-def _merge_leaf_rows(ti, s_m, t_best, par, win, win_val, r,
-                     tb_rows, par_rows, win_rows,
-                     code=None, code_val=None, code_rows=None,
-                     s2_m=None, u_mix_r=None):
-    """Per-row winner selection + one-hot shading fetch, appended to the
-    row accumulators.  ``ti`` is (128, cols) candidate distances (inf =
-    miss) for sublane-row ``r``.  With ``code`` (record mode) the winner's
-    GLOBAL chunk-slot id (code_val + in-chunk lane) is tracked too — the
-    hit record the differentiable replay consumes (diff/replay.py).
-    ``s2_m``/``u_mix_r`` (mix scenes): a second one-hot fetch pulls the
-    winner's leaf-B material rows + mix factor (_S2_FAC) and the bounce's
-    mix coin selects A or B PER RAY before the winner rides the carry —
-    the stochastic blend of lib/materials.rs:149-156 with a 16-row carry."""
-    hi = jax.lax.Precision.HIGHEST
-    lf = BVH_LEAF
-    cols = ti.shape[1]
-    iota = jax.lax.broadcasted_iota(jnp.int32, (lf, cols), 0)
-    tb_r = t_best[r:r + 1]
-    t_min = jnp.min(ti, axis=0, keepdims=True)
-    improved = t_min < tb_r
-    winner = jnp.min(jnp.where(ti == t_min, iota, lf),
-                     axis=0, keepdims=True)
-    onehot = jnp.where((iota == winner) & (ti == t_min), 1.0, 0.0)
-    p = jax.lax.dot_general(
-        s_m, onehot, (((1,), (0,)), ((), ())),
-        precision=hi, preferred_element_type=jnp.float32)    # (16, cols)
-    if s2_m is not None:
-        p2 = jax.lax.dot_general(
-            s2_m, onehot, (((1,), (0,)), ((), ())),
-            precision=hi, preferred_element_type=jnp.float32)
-        pick_a = u_mix_r >= p2[_S2_FAC:_S2_FAC + 1]          # (1, cols)
-        # geometry rows (0-3) always come from S; material rows blend
-        p = jnp.concatenate(
-            [p[:_BS_AL], jnp.where(pick_a, p[_BS_AL:], p2[_BS_AL:])],
-            axis=0)
-    tb_rows.append(jnp.where(improved, t_min, tb_r))
-    par_rows.append((improved, p))
-    win_rows.append(jnp.where(improved, win_val, win[r:r + 1]))
-    if code is not None:
-        code_rows.append(jnp.where(improved, code_val + winner,
-                                   code[r:r + 1]))
-
-
-def _sphere_chunk_hit(s_ref, chunk, o3, d3, a, t_best, par, win,
-                      code=None, code_base=0, s2_ref=None, u_mix=None):
-    """Intersect one 128-sphere chunk against the whole ray block, merging
-    winners into (t_best, par, win).  Direct (o - c) quadratic with the
-    Sphere::hit root rule (lib/objects.rs:38-45): near root if in
-    [T_MIN, t_best], else far root — arithmetic kept OPERATION-FOR-
-    OPERATION identical to the XLA BVH path's gather_sphere_t (true
-    division, not reciprocal-multiply) so the engines pick identical
-    winners and the renders match bitwise."""
-    base = pl.multiple_of(chunk * 16, 16)
-    s_m = s_ref[pl.ds(base, 16), :]                        # (16, 128)
-    s2_m = s2_ref[pl.ds(base, 16), :] if s2_ref is not None else None
-    g = _to_sublanes(s_m)                                  # (128, 16)
-    cx = g[:, _BS_GEO + 0:_BS_GEO + 1]                     # (128, 1)
-    cy = g[:, _BS_GEO + 1:_BS_GEO + 2]
-    cz = g[:, _BS_GEO + 2:_BS_GEO + 3]
-    rad = g[:, _BS_RAD:_BS_RAD + 1]
-    live = rad > 0.0                                       # padding lanes
-    ox, oy, oz = o3
-    dx, dy, dz = d3
-    code_val = chunk * BVH_LEAF + code_base if code is not None else None
-    tb_rows, par_rows, win_rows, code_rows = [], [], [], []
-    for r in range(t_best.shape[0]):
-        def row(v, r=r):
-            return v[r:r + 1, :]
-        ocx = row(ox) - cx                                 # (128, cols)
-        ocy = row(oy) - cy
-        ocz = row(oz) - cz
-        hb = ocx * row(dx) + ocy * row(dy) + ocz * row(dz)
-        cq = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad
-        disc = hb * hb - row(a) * cq
-        ok = disc >= 0.0
-        sq = jnp.sqrt(jnp.maximum(disc, 0.0))
-        t1 = (-hb - sq) / row(a)
-        t2 = (-hb + sq) / row(a)
-        tb_r = t_best[r:r + 1]
-        t1ok = (t1 >= T_MIN) & (t1 <= tb_r)
-        t2ok = (t2 >= T_MIN) & (t2 <= tb_r)
-        ti = jnp.where(ok & live & t1ok, t1,
-                       jnp.where(ok & live & t2ok, t2, jnp.inf))
-        _merge_leaf_rows(ti, s_m, t_best, par, win, 1.0, r,
-                         tb_rows, par_rows, win_rows,
-                         code, code_val, code_rows,
-                         s2_m, row(u_mix) if s2_m is not None else None)
-    return _merge_chunk_rows(t_best, par, win, tb_rows, par_rows, win_rows,
-                             code, code_rows)
-
-
-def _tri_gcols(g):
-    """(128, 16) sublane geometry -> the 9 (128, 1) _TG_ columns."""
-    def col(j):
-        return g[:, j:j + 1]
-    return (col(_TG_V0), col(_TG_V0 + 1), col(_TG_V0 + 2),
-            col(_TG_E1), col(_TG_E1 + 1), col(_TG_E1 + 2),
-            col(_TG_E2), col(_TG_E2 + 1), col(_TG_E2 + 2))
-
-
-def _row_mt(gcols, o_r, d_r):
-    """Direct cross-product Moller-Trumbore of ONE ray row ((1, cols)
-    slices) against 128 gathered triangles -> (tt (128, cols), bary_ok).
-    The SINGLE copy of the kernel's triangle arithmetic — shared by the
-    surface-chunk leaf (_tri_chunk_hit) and the mesh-volume crossing scan
-    (_mv_min_t); same ops as the XLA path's gather_triangle_t, so winners
-    match the other engines bitwise.  Callers apply their own t-range
-    policy (surface: (T_MIN, t_best]; crossings: any t >= floor)."""
-    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = gcols
-    oxr, oyr, ozr = o_r
-    dxr, dyr, dzr = d_r
-    hx = dyr * e2z - dzr * e2y                             # h = d x e2
-    hy = dzr * e2x - dxr * e2z
-    hz = dxr * e2y - dyr * e2x
-    a_ = e1x * hx + e1y * hy + e1z * hz
-    ok = jnp.abs(a_) > TRI_DET_EPS
-    f = 1.0 / jnp.where(ok, a_, 1.0)
-    sx = oxr - v0x                                         # s = o - v0
-    sy = oyr - v0y
-    sz = ozr - v0z
-    u = f * (sx * hx + sy * hy + sz * hz)
-    qx = sy * e1z - sz * e1y                               # q = s x e1
-    qy = sz * e1x - sx * e1z
-    qz = sx * e1y - sy * e1x
-    v = f * (dxr * qx + dyr * qy + dzr * qz)
-    tt = f * (e2x * qx + e2y * qy + e2z * qz)
-    bary_ok = (ok & (u >= 0.0) & (u <= 1.0) & (v >= 0.0)
-               & (u + v <= 1.0))
-    return tt, bary_ok
-
-
-def _tri_chunk_hit(g_ref, s_ref, chunk, o3, d3, t_best, par, win,
-                   code=None, code_base=0, s2_ref=None, u_mix=None):
-    """Intersect one 128-triangle chunk against the whole ray block —
-    direct cross-product Moller-Trumbore (_row_mt), merging winners."""
-    base = pl.multiple_of(chunk * 16, 16)
-    g_m = g_ref[pl.ds(base, 16), :]                        # (16, 128)
-    s_m = s_ref[pl.ds(base, 16), :]
-    s2_m = s2_ref[pl.ds(base, 16), :] if s2_ref is not None else None
-    gcols = _tri_gcols(_to_sublanes(g_m))
-    ox, oy, oz = o3
-    dx, dy, dz = d3
-    code_val = chunk * BVH_LEAF + code_base if code is not None else None
-    tb_rows, par_rows, win_rows, code_rows = [], [], [], []
-    for r in range(t_best.shape[0]):
-        def row(v, r=r):
-            return v[r:r + 1, :]
-        tt, bary_ok = _row_mt(gcols, (row(ox), row(oy), row(oz)),
-                              (row(dx), row(dy), row(dz)))
-        tb_r = t_best[r:r + 1]
-        valid = bary_ok & (tt > T_MIN) & (tt <= tb_r)
-        ti = jnp.where(valid, tt, jnp.inf)
-        _merge_leaf_rows(ti, s_m, t_best, par, win, 0.0, r,
-                         tb_rows, par_rows, win_rows,
-                         code, code_val, code_rows,
-                         s2_m, row(u_mix) if s2_m is not None else None)
-    return _merge_chunk_rows(t_best, par, win, tb_rows, par_rows, win_rows,
-                             code, code_rows)
-
-
-def _mv_min_t(g_ref, c0, nc, o3, d3, floor_rows):
-    """Mesh-volume crossing scan: min over chunks [c0, c0+nc) of raw
-    Moller-Trumbore t >= ``floor_rows`` (per-ray (8, cols) lower bound —
-    -inf rows for the ENTRY pass, t1 + T_MIN for the EXIT pass), else
-    +inf.  No t_best pruning and no T_MIN floor: boundary crossings exist
-    at ANY t (lib/volume.rs boundary.hit over (-inf, inf) — the ray
-    origin may be inside the medium)."""
-    ox, oy, oz = o3
-    dx, dy, dz = d3
-
-    def body(c, best):
-        base = pl.multiple_of((c0 + c) * 16, 16)
-        g_m = g_ref[pl.ds(base, 16), :]
-        gcols = _tri_gcols(_to_sublanes(g_m))
-        rows = []
-        for r in range(best.shape[0]):
-            def row(v, r=r):
-                return v[r:r + 1, :]
-            tt, bary_ok = _row_mt(gcols, (row(ox), row(oy), row(oz)),
-                                  (row(dx), row(dy), row(dz)))
-            valid = bary_ok & (tt >= row(floor_rows))
-            ti = jnp.where(valid, tt, jnp.inf)
-            rows.append(jnp.minimum(
-                row(best), jnp.min(ti, axis=0, keepdims=True)))
-        return jnp.concatenate(rows, axis=0)
-
-    init = jnp.full(floor_rows.shape, jnp.inf, jnp.float32)
-    return jax.lax.fori_loop(0, nc, body, init)
-
-
-def _traverse_tree(nodes_f, nodes_i, k_nodes, leaf_fn,
-                   ox, oy, oz, inv_dx, inv_dy, inv_dz, alive,
-                   t_best, par, win, code=None):
-    """Packet traversal of one chunk-leaf skip-link tree.
-
-    One scalar cursor for the whole ray block; per node a vectorized slab
-    test (utils/aabb.py:slab_hit semantics, per-ray t_best as tmax) decides
-    hit_link vs miss_link by ANY-reduction over live rays; leaf chunks run
-    ``leaf_fn`` under lax.cond.  Terminates at node == k_nodes (the root's
-    miss link).  A ray that missed a node AABB may still be tested against
-    that leaf's chunk — harmless: a conservative box miss means the exact
-    primitive test rejects it (or legitimately accepts a real hit).
-
-    ``code`` (record mode): an extra (8, 256) int32 carry holding each
-    ray's winning chunk-slot id, updated by the leaf merges — the hit
-    record consumed by the differentiable replay (diff/replay.py).
-    """
-    with_code = code is not None
-
-    def cond(state):
-        return state[0] < k_nodes
-
-    def body(state):
-        if with_code:
-            node, t_best, par, win, code = state
-        else:
-            node, t_best, par, win = state
-            code = None
-        fb = node * 6
-        lo_x = nodes_f[fb + 0]
-        lo_y = nodes_f[fb + 1]
-        lo_z = nodes_f[fb + 2]
-        hi_x = nodes_f[fb + 3]
-        hi_y = nodes_f[fb + 4]
-        hi_z = nodes_f[fb + 5]
-        ib = node * 3
-        hit_l = nodes_i[ib + 0]
-        miss_l = nodes_i[ib + 1]
-        chunk = nodes_i[ib + 2]
-
-        t0x = (lo_x - ox) * inv_dx
-        t1x = (hi_x - ox) * inv_dx
-        t0y = (lo_y - oy) * inv_dy
-        t1y = (hi_y - oy) * inv_dy
-        t0z = (lo_z - oz) * inv_dz
-        t1z = (hi_z - oz) * inv_dz
-        entry = jnp.maximum(
-            jnp.maximum(jnp.minimum(t0x, t1x), jnp.minimum(t0y, t1y)),
-            jnp.maximum(jnp.minimum(t0z, t1z), T_MIN))
-        exit_ = jnp.minimum(
-            jnp.minimum(jnp.maximum(t0x, t1x), jnp.maximum(t0y, t1y)),
-            jnp.minimum(jnp.maximum(t0z, t1z), t_best))
-        boxhit = (exit_ > entry) & alive
-        any_hit = jnp.max(jnp.where(boxhit, 1.0, 0.0)) > 0.0
-
-        def take(op):
-            return leaf_fn(chunk, *op)
-
-        op = (t_best, par, win) + ((code,) if with_code else ())
-        res = jax.lax.cond(any_hit & (chunk >= 0), take, lambda op: op, op)
-        node = jnp.where(any_hit, hit_l, miss_l)
-        return (node,) + tuple(res)
-
-    init = (jnp.int32(0), t_best, par, win) + (
-        (code,) if with_code else ())
-    out = jax.lax.while_loop(cond, body, init)
-    if with_code:
-        return out[1], out[2], out[3], out[4]
-    return out[1], out[2], out[3]
-
-
 def _radiance_math(f, k0, k1, ray_u32, px, py, *, n_spheres, max_depth,
-                   sphere_kinds, bg_kind, clay, unrolled,
-                   tri=None, tri_kinds=(), bvh=None, mix=False, n_vol=0,
-                   n_mv=0, record_ref=None, gens=1, debug=None,
-                   mixn_tab=None, d_mix=0):
-    """The megakernel's radiance computation as a PURE function.
+                   sphere_kinds, bg_kind, clay, unrolled, mix=False,
+                   n_vol=0):
+    """The kernel's radiance computation as a PURE function of one ray
+    block.
 
-    ``debug``: "normal" | "random" — the reference's inspection view
-    modes (lib/core/render.rs:42-49) as a SINGLE intersection pass on
-    the packet-traversal path: hit -> 0.5*(normalize(front-face normal)
-    + 1) (Normal) or black (Random), miss -> background.  Forward-only,
-    non-skymap; the chain terminates after bounce 0.
+    ``f(i)`` is a scalar getter over the packed float-param layout (a load
+    from the ``fparams`` input in the forward kernel; the vjp inputs in the
+    grad kernels, so ``jax.vjp`` of this very function yields the
+    parameter cotangents).  ``unrolled`` replaces the early-out
+    while_loop with a static chain — required under vjp.  ``mix``: the
+    scene table has (single-level) mix materials — per-bounce uniform
+    columns shift by MAX_MIX_DEPTH to stay stream-aligned with the XLA
+    engine (ops/shade.py:shade_uniforms) and every sphere carries two baked
+    leaf-parameter sets blended by the level-0 mix coin.  ``n_vol``: the
+    last ``n_vol`` spheres are constant-density volumes.
 
-    ``f(i)`` is a scalar getter over the packed float-param layout (SMEM
-    scalar-prefetch in the forward kernel, a VMEM row in the grad kernel so
-    ``jax.vjp`` of this very function yields the parameter cotangents).
-    ``unrolled`` replaces the early-out while_loop with a static chain —
-    required under vjp (reverse-mode cannot transpose while_loop).
-    ``tri``: None or (tri_c, tri_s, tb) — the VMEM triangle constant
-    matrices (_pack_tri) + static chunk width.
-    ``bvh``: None or a dict {"sph": (nodes_f, nodes_i, k_nodes, c_ref,
-    s_ref) | None, "tri": (...) | None} — switches the intersect stage to
-    chunk-leaf packet traversal (forward-only; mutually exclusive with the
-    brute-force ``tri``/unrolled-sphere path).  ``tri_kinds`` then carries
-    the kinds present among ALL primitives (for lobe compilation).
-    ``mix``: the scene table has (single-level) mix materials — per-bounce
-    uniform columns shift by MAX_MIX_DEPTH to stay stream-aligned with the
-    XLA engine (ops/shade.py:shade_uniforms) and every primitive carries
-    two baked leaf-parameter sets blended by the level-0 mix coin
-    (lib/materials.rs:149-156 semantics; nested mixes are gated out by
-    supports()).
-    ``record_ref``: BVH record mode — a (max_depth * 8, 256) int32 output
-    ref receiving each bounce's winning chunk-slot id per ray at sublane
-    rows [b*8, (b+1)*8) (sphere tree slots first, volume then triangle
-    slots offset by the preceding spans; -1 = miss).  The write offset is
-    the traced bounce counter (dynamic SUBLANE stores are cheap), so
-    record mode works under the while_loop chain — required on real TPUs,
-    where unrolled+triangles does not compile (see _chain_unrolled).  The
-    caller must pre-initialize the ref to -1 (skipped bounces never
-    write).  Records feed the differentiable replay (diff/replay.py).
-    ``gens``: GENERATION-SCHEDULED wavefront (SURVEY section 7 hard part
-    (a), the compaction analog that fits a lane machine): the block's
-    metadata covers ``gens`` consecutive 2048-ray generations and every
-    lane, the moment its ray retires, immediately starts ITS OWN lane of
-    the next generation — a static per-lane schedule, so no scatters, no
-    queues, and bitwise-identical per-ray results (the RNG is keyed by
-    ray id alone).  The while_loop now exits when all G generations are
-    exhausted, so deep-chain waste (a block idling at the depth of its
-    longest ray) amortizes over G rays per lane.  Forward-only, no
-    skymap/record (per-lane miss records would need G register sets).
     Returns (rad_r, rad_g, rad_b); with ``bg_kind == SKYMAP`` additionally
     (mdx, mdy, mdz, mt_r, mt_g, mt_b) — the MISS direction and throughput
     recorded when each path escaped (zeros if it never did), for the
     driver's batched equirect lookup outside the kernel.
     """
     skymap = bg_kind == B.SKYMAP
-    assert gens == 1 or not (skymap or unrolled
-                             or record_ref is not None), \
-        "generation scheduling: forward, non-skymap, while-loop only"
-    present = _flat_kinds(sphere_kinds) | set(tri_kinds)
+    present = _flat_kinds(sphere_kinds)
     lam = M.LAMBERTIAN in present
     met = M.METAL in present
     die = M.DIELECTRIC in present
@@ -1281,1471 +215,659 @@ def _radiance_math(f, k0, k1, ray_u32, px, py, *, n_spheres, max_depth,
     iso = M.ISOTROPIC in present
     stride = _sphere_stride(mix, n_vol > 0)
     n_solid = n_spheres - n_vol
-    # mix + bvh: chunk trees carry S2 matrices; the leaf merges blend the
-    # two one-hot fetches with the bounce's mix coin (_merge_leaf_rows)
 
-    if True:  # keep the historical indentation of the kernel body
-        ox_c, oy_c, oz_c = f(_CAM + 0), f(_CAM + 1), f(_CAM + 2)
-        hx, hy, hz = f(_CAM + 3), f(_CAM + 4), f(_CAM + 5)
-        vx, vy, vz = f(_CAM + 6), f(_CAM + 7), f(_CAM + 8)
-        llx, lly, llz = f(_CAM + 9), f(_CAM + 10), f(_CAM + 11)
+    ox_c, oy_c, oz_c = f(_CAM + 0), f(_CAM + 1), f(_CAM + 2)
+    hx, hy, hz = f(_CAM + 3), f(_CAM + 4), f(_CAM + 5)
+    vx, vy, vz = f(_CAM + 6), f(_CAM + 7), f(_CAM + 8)
+    llx, lly, llz = f(_CAM + 9), f(_CAM + 10), f(_CAM + 11)
 
-        if gens > 1:
-            # generation-scheduled: the block metadata is (gens*8, 256);
-            # the WORKING registers stay (8, 256) (gen slices)
-            px_full, py_full, ray_full = px, py, ray_u32
-            k0 = k0[:BLOCK_ROWS]
-            k1 = k1[:BLOCK_ROWS]
+    # pixel jitter (stream 0) -> camera ray (lib/core/camera.rs:19-24)
+    j1, j2 = _stream_uniforms(k0, k1, ray_u32, 0, 2)
+    s = (px + j1) * f(_INV_W)
+    t = (py + j2) * f(_INV_H)
+    dx = llx + s * hx - t * vx - ox_c
+    dy = lly + s * hy - t * vy - oy_c
+    dz = llz + s * hz - t * vz - oz_c
+    ox = jnp.zeros_like(dx) + ox_c
+    oy = jnp.zeros_like(dx) + oy_c
+    oz = jnp.zeros_like(dx) + oz_c
 
-            def gen_slice(v, k):
-                return v[k * BLOCK_ROWS:(k + 1) * BLOCK_ROWS, :]
+    one = jnp.ones_like(dx)
+    zero = jnp.zeros_like(dx)
 
-            px, py = gen_slice(px_full, 0), gen_slice(py_full, 0)
-            ray_u32 = gen_slice(ray_full, 0)
+    def background(dx, dy, dz):
+        ca = (f(_BG + 0), f(_BG + 1), f(_BG + 2))
+        if bg_kind == B.UNIFORM:
+            return tuple(zero + c for c in ca)
+        cb = (f(_BG + 3), f(_BG + 4), f(_BG + 5))
+        norm = jax.lax.rsqrt(_dot3(dx, dy, dz, dx, dy, dz))
+        tt = 0.5 * (dy * norm + 1.0)
+        return tuple((1.0 - tt) * a + tt * b for a, b in zip(ca, cb))
 
-        def camera_ray(ray_u, px_g, py_g):
-            # pixel jitter (stream 0) -> camera ray (lib/core/camera.rs:19-24)
-            j1, j2 = _stream_uniforms(k0, k1, ray_u, 0, 2)
-            s = (px_g + j1) * f(_INV_W)
-            t = (py_g + j2) * f(_INV_H)
-            dx = llx + s * hx - t * vx - ox_c
-            dy = lly + s * hy - t * vy - oy_c
-            dz = llz + s * hz - t * vz - oz_c
-            ox = jnp.full_like(dx, 0.0) + ox_c
-            oy = jnp.full_like(dx, 0.0) + oy_c
-            oz = jnp.full_like(dx, 0.0) + oz_c
-            return ox, oy, oz, dx, dy, dz
-
-        ox, oy, oz, dx, dy, dz = camera_ray(ray_u32, px, py)
-
-        one = jnp.ones_like(dx)
-        zero = jnp.zeros_like(dx)
-
-        def background(dx, dy, dz):
-            ca = (f(_BG + 0), f(_BG + 1), f(_BG + 2))
-            if bg_kind == B.UNIFORM:
-                return tuple(zero + c for c in ca)
-            cb = (f(_BG + 3), f(_BG + 4), f(_BG + 5))
-            norm = jax.lax.rsqrt(_dot3(dx, dy, dz, dx, dy, dz))
-            tt = 0.5 * (dy * norm + 1.0)
-            return tuple((1.0 - tt) * a + tt * b for a, b in zip(ca, cb))
-
-        def _shade(b, a, hit, ptx, pty, ptz, nx, ny, nz,
-                   al_r, al_g, al_b, fuzz, ir, em_r, em_g, em_b,
-                   is_lam, is_met, is_die, is_emi, is_iso,
-                   alive, u1, u2, u_coin, u_r,
-                   ox, oy, oz, dx, dy, dz,
-                   thr_r, thr_g, thr_b, rad_r, rad_g, rad_b, miss,
-                   rec_bits_write=None):
-            """Shared bounce tail: background on miss, front-face flip,
-            material lobes, throughput/radiance update -> next state.
-            ``miss``: () or the 6 skymap miss-record registers.
-            ``rec_bits_write``: record mode — called with the bounce's
-            discrete-decision bits (front<<27 | metal_ok<<28 |
-            dielectric_reflect<<29) so the replay can take EXACTLY the
-            primal's branches (diff/replay.py exact replay)."""
-            missed = alive & ~hit
-            if skymap:
-                # record the escape (a path misses at most once); the
-                # equirect texel fetch happens OUTSIDE the kernel
-                mdx, mdy, mdz, mt_r, mt_g, mt_b = miss
-                mdx = jnp.where(missed, dx, mdx)
-                mdy = jnp.where(missed, dy, mdy)
-                mdz = jnp.where(missed, dz, mdz)
-                mt_r = jnp.where(missed, thr_r, mt_r)
-                mt_g = jnp.where(missed, thr_g, mt_g)
-                mt_b = jnp.where(missed, thr_b, mt_b)
-                miss = (mdx, mdy, mdz, mt_r, mt_g, mt_b)
-            else:
-                # background on miss (lib/core/render.rs:57)
-                bg_r, bg_g, bg_b = background(dx, dy, dz)
-                rad_r = rad_r + jnp.where(missed, thr_r * bg_r, 0.0)
-                rad_g = rad_g + jnp.where(missed, thr_g * bg_g, 0.0)
-                rad_b = rad_b + jnp.where(missed, thr_b * bg_b, 0.0)
-
-            front = _dot3(dx, dy, dz, nx, ny, nz) < 0.0
-            sgn = jnp.where(front, 1.0, -1.0)
-            nx, ny, nz = nx * sgn, ny * sgn, nz * sgn
-
-            # unit-sphere-surface sample from (u1, u2)
-            zs = 1.0 - 2.0 * u1
-            rs = jnp.sqrt(jnp.maximum(0.0, 1.0 - zs * zs))
-            phi = (2.0 * np.float32(np.pi)) * u2
-            sx = rs * jnp.cos(phi)
-            sy = rs * jnp.sin(phi)
-            sz = zs
-
-            def lambert_dir():
-                ldx, ldy, ldz = nx + sx, ny + sy, nz + sz
-                deg = (
-                    (jnp.abs(ldx) < 1e-8)
-                    & (jnp.abs(ldy) < 1e-8)
-                    & (jnp.abs(ldz) < 1e-8)
-                )
-                return (
-                    jnp.where(deg, nx, ldx),
-                    jnp.where(deg, ny, ldy),
-                    jnp.where(deg, nz, ldz),
-                )
-
-            rec_m_ok = rec_refl = None
-            if clay:
-                at_r = at_g = at_b = zero + 0.8
-                ndx, ndy, ndz = lambert_dir()
-                scatters = zero < one
-            else:
-                at_r, at_g, at_b = zero, zero, zero
-                ndx, ndy, ndz = nx, ny, nz
-                scatters = zero < one
-
-                if lam:
-                    ldx, ldy, ldz = lambert_dir()
-                    at_r = jnp.where(is_lam, al_r, at_r)
-                    at_g = jnp.where(is_lam, al_g, at_g)
-                    at_b = jnp.where(is_lam, al_b, at_b)
-                    ndx = jnp.where(is_lam, ldx, ndx)
-                    ndy = jnp.where(is_lam, ldy, ndy)
-                    ndz = jnp.where(is_lam, ldz, ndz)
-
-                if met:
-                    dn = _dot3(dx, dy, dz, nx, ny, nz)
-                    rfx = dx - 2.0 * dn * nx
-                    rfy = dy - 2.0 * dn * ny
-                    rfz = dz - 2.0 * dn * nz
-                    inv_len = jax.lax.rsqrt(jnp.maximum(
-                        _dot3(rfx, rfy, rfz, rfx, rfy, rfz), 1e-30
-                    ))
-                    mdx = rfx * inv_len + fuzz * sx
-                    mdy = rfy * inv_len + fuzz * sy
-                    mdz = rfz * inv_len + fuzz * sz
-                    m_ok = _dot3(mdx, mdy, mdz, nx, ny, nz) > 0.0
-                    rec_m_ok = m_ok
-                    at_r = jnp.where(is_met, jnp.where(m_ok, al_r, 0.0), at_r)
-                    at_g = jnp.where(is_met, jnp.where(m_ok, al_g, 0.0), at_g)
-                    at_b = jnp.where(is_met, jnp.where(m_ok, al_b, 0.0), at_b)
-                    ndx = jnp.where(is_met, mdx, ndx)
-                    ndy = jnp.where(is_met, mdy, ndy)
-                    ndz = jnp.where(is_met, mdz, ndz)
-                    # Mosaic cannot select on i1 vectors; boolean algebra
-                    scatters = (is_met & m_ok) | (~is_met & scatters)
-
-                if die:
-                    ratio = jnp.where(front, 1.0 / ir, ir)
-                    inv_len = jax.lax.rsqrt(jnp.maximum(a, 1e-30))
-                    udx, udy, udz = dx * inv_len, dy * inv_len, dz * inv_len
-                    cos_t = jnp.minimum(
-                        -_dot3(nx, ny, nz, udx, udy, udz), 1.0
-                    )
-                    sin_t = jnp.sqrt(jnp.maximum(0.0, 1.0 - cos_t * cos_t))
-                    r0 = (1.0 - ratio) / (1.0 + ratio)
-                    r0 = r0 * r0
-                    omc = 1.0 - cos_t
-                    omc2 = omc * omc
-                    schl = r0 + (1.0 - r0) * omc2 * omc2 * omc
-                    refl = (ratio * sin_t > 1.0) | (schl > u_coin)
-                    rec_refl = refl
-                    udn = _dot3(udx, udy, udz, nx, ny, nz)
-                    rx = udx - 2.0 * udn * nx
-                    ry = udy - 2.0 * udn * ny
-                    rz = udz - 2.0 * udn * nz
-                    perp_x = ratio * (udx + cos_t * nx)
-                    perp_y = ratio * (udy + cos_t * ny)
-                    perp_z = ratio * (udz + cos_t * nz)
-                    par = -jnp.sqrt(jnp.maximum(jnp.abs(
-                        1.0 - _dot3(perp_x, perp_y, perp_z,
-                                    perp_x, perp_y, perp_z)
-                    ), 1e-12))
-                    ddx = jnp.where(refl, rx, perp_x + par * nx)
-                    ddy = jnp.where(refl, ry, perp_y + par * ny)
-                    ddz = jnp.where(refl, rz, perp_z + par * nz)
-                    at_r = jnp.where(is_die, 1.0, at_r)
-                    at_g = jnp.where(is_die, 1.0, at_g)
-                    at_b = jnp.where(is_die, 1.0, at_b)
-                    ndx = jnp.where(is_die, ddx, ndx)
-                    ndy = jnp.where(is_die, ddy, ndy)
-                    ndz = jnp.where(is_die, ddz, ndz)
-
-                if emi:
-                    at_r = jnp.where(is_emi, em_r, at_r)
-                    at_g = jnp.where(is_emi, em_g, at_g)
-                    at_b = jnp.where(is_emi, em_b, at_b)
-                    scatters = scatters & ~is_emi
-
-                if iso:
-                    # Isotropic phase function (lib/volume.rs:75-88): new
-                    # dir = unit-sphere-VOLUME sample — the surface sample
-                    # scaled by cbrt01(u), the exp/log form shared with
-                    # ops/shade.py for bit-identical engine parity
-                    crt = jnp.exp(jnp.log(jnp.maximum(u_r, 1e-38))
-                                  * (1.0 / 3.0))
-                    at_r = jnp.where(is_iso, al_r, at_r)
-                    at_g = jnp.where(is_iso, al_g, at_g)
-                    at_b = jnp.where(is_iso, al_b, at_b)
-                    ndx = jnp.where(is_iso, sx * crt, ndx)
-                    ndy = jnp.where(is_iso, sy * crt, ndy)
-                    ndz = jnp.where(is_iso, sz * crt, ndz)
-
-            if rec_bits_write is not None:
-                bits = front.astype(jnp.int32) * (1 << 27)
-                if rec_m_ok is not None:
-                    bits += rec_m_ok.astype(jnp.int32) * (1 << 28)
-                if rec_refl is not None:
-                    bits += rec_refl.astype(jnp.int32) * (1 << 29)
-                rec_bits_write(bits)
-
-            terminal = alive & hit & ~scatters
-            rad_r = rad_r + jnp.where(terminal, thr_r * at_r, 0.0)
-            rad_g = rad_g + jnp.where(terminal, thr_g * at_g, 0.0)
-            rad_b = rad_b + jnp.where(terminal, thr_b * at_b, 0.0)
-
-            cont = alive & hit & scatters
-            thr_r = jnp.where(cont, thr_r * at_r, thr_r)
-            thr_g = jnp.where(cont, thr_g * at_g, thr_g)
-            thr_b = jnp.where(cont, thr_b * at_b, thr_b)
-            ox = jnp.where(cont, ptx, ox)
-            oy = jnp.where(cont, pty, oy)
-            oz = jnp.where(cont, ptz, oz)
-            dx = jnp.where(cont, ndx, dx)
-            dy = jnp.where(cont, ndy, dy)
-            dz = jnp.where(cont, ndz, dz)
-            alive_f = jnp.where(cont, 1.0, 0.0)
-            return (b + 1, ox, oy, oz, dx, dy, dz,
-                    thr_r, thr_g, thr_b, rad_r, rad_g, rad_b,
-                    *miss, alive_f)
-
-        # Bounce chain as a while_loop with an ALL-DEAD EARLY-OUT: blocks are
-        # spatially coherent (consecutive pixels), so sky-only blocks finish
-        # after one bounce instead of running all max_depth iterations
-        # (docs/performance.md "dead-lane waste").  The liveness mask rides
-        # the carry as f32 (Mosaic dislikes i1 loop state).
-        def bounce_body(state, ray_u32=ray_u32):
-            (b, ox, oy, oz, dx, dy, dz,
-             thr_r, thr_g, thr_b, rad_r, rad_g, rad_b,
-             *miss, alive_f) = state
-            miss = tuple(miss)
-            alive = alive_f > 0.0
-            # per-bounce uniforms (stream 1 + b).  Column layout matches
-            # the XLA engine bit-for-bit (ops/shade.py shade_uniforms):
-            # [mix coins x MAX_MIX_DEPTH if has_mix] ++ [dir1 dir2 coin
-            # radius].  Only the level-0 mix coin is consumed (supports()
-            # admits single-level mixes; XLA's levels 1-3 are no-ops on
-            # them), and radius only when an Isotropic exists.
-            # Volume scenes draw one extra column per volume object (the
-            # free-flight uniform; XLA: u_vol = u[:, n_shade:]).
-            off = M.MAX_MIX_DEPTH if (mix or mixn_tab is not None) else 0
-            n_u = off + ((4 if iso else 3) if n_vol + n_mv == 0
-                         else 4 + n_vol + n_mv)
-            us = _stream_uniforms(k0, k1, ray_u32, 1 + b, n_u)
-            u_mix = us[0] if mix else None
-            u_mixn = us[:d_mix] if mixn_tab is not None else None
-            u1, u2, u_coin = us[off], us[off + 1], us[off + 2]
-            u_r = us[off + 3] if iso else zero
-
-            a = _dot3(dx, dy, dz, dx, dy, dz)
-            inv_a = 1.0 / a
-
-            if bvh is not None:
-                # ---- intersect: chunk-leaf packet traversal (big scenes)
-                record = record_ref is not None
-                o3 = (ox, oy, oz)
-                d3 = (dx, dy, dz)
-                inv_dx = 1.0 / dx
-                inv_dy = 1.0 / dy
-                inv_dz = 1.0 / dz
-                t_best = jnp.full_like(dx, jnp.inf)
-                par = tuple(zero for _ in range(16))
-                win = zero
-                code = (jnp.full(dx.shape, -1, jnp.int32) if record
-                        else None)
-                sph_span = vol_span = tri_span = 0
-                if bvh.get("sph") is not None:
-                    nf, ni, k_n, s_ref, *s2 = bvh["sph"]
-                    s2_ref = s2[0] if s2 else None
-                    sph_span = (s_ref.shape[0] // 16) * BVH_LEAF
-
-                    def sph_leaf(chunk, tb, pr, wn, *cd, s_ref=s_ref, a=a,
-                                 s2_ref=s2_ref):
-                        return _sphere_chunk_hit(
-                            s_ref, chunk, o3, d3, a, tb, pr, wn,
-                            code=cd[0] if cd else None, code_base=0,
-                            s2_ref=s2_ref, u_mix=u_mix)
-
-                    res = _traverse_tree(
-                        nf, ni, k_n, sph_leaf, ox, oy, oz,
-                        inv_dx, inv_dy, inv_dz, alive, t_best, par, win,
-                        code=code)
-                    (t_best, par, win), code = res[:3], (res[3] if record
-                                                         else None)
-                if bvh.get("vol") is not None:
-                    nf, ni, k_n, s_ref, x_ref, *s2 = bvh["vol"]
-                    s2_ref = s2[0] if s2 else None
-                    vol_span = (s_ref.shape[0] // 16) * BVH_LEAF
-                    ray_len = jnp.sqrt(a)
-                    u_vols = [us[off + 4 + v] for v in range(n_vol)]
-
-                    def vol_leaf(chunk, tb, pr, wn, *cd, s_ref=s_ref,
-                                 x_ref=x_ref, a=a, ray_len=ray_len,
-                                 base=sph_span, s2_ref=s2_ref):
-                        return _vol_chunk_hit(
-                            s_ref, x_ref, chunk, o3, d3, a, ray_len,
-                            u_vols, tb, pr, wn,
-                            code=cd[0] if cd else None, code_base=base,
-                            s2_ref=s2_ref, u_mix=u_mix)
-
-                    res = _traverse_tree(
-                        nf, ni, k_n, vol_leaf, ox, oy, oz,
-                        inv_dx, inv_dy, inv_dz, alive, t_best, par, win,
-                        code=code)
-                    (t_best, par, win), code = res[:3], (res[3] if record
-                                                         else None)
-                if bvh.get("tri") is not None:
-                    nf, ni, k_n, g_ref, s_ref, *s2 = bvh["tri"]
-                    s2_ref = s2[0] if s2 else None
-                    tri_span = (g_ref.shape[0] // 16) * BVH_LEAF
-
-                    def tri_leaf(chunk, tb, pr, wn, *cd, g_ref=g_ref,
-                                 s_ref=s_ref, base=sph_span + vol_span,
-                                 s2_ref=s2_ref):
-                        return _tri_chunk_hit(
-                            g_ref, s_ref, chunk, o3, d3, tb, pr, wn,
-                            code=cd[0] if cd else None, code_base=base,
-                            s2_ref=s2_ref, u_mix=u_mix)
-
-                    res = _traverse_tree(
-                        nf, ni, k_n, tri_leaf, ox, oy, oz,
-                        inv_dx, inv_dy, inv_dz, alive, t_best, par, win,
-                        code=code)
-                    (t_best, par, win), code = res[:3], (res[3] if record
-                                                         else None)
-                if bvh.get("mv") is not None:
-                    # mesh-bounded volumes: dense two-pass crossing scan
-                    # per volume (entry at ANY t, exit >= entry + T_MIN)
-                    # + exponential free flight — lib/volume.rs:35-73
-                    # with a Mesh boundary; arithmetic mirrors
-                    # ops/intersect.py mesh_volume_ts
-                    mv_g_ref, mv_spans = bvh["mv"]
-                    ray_len_mv = jnp.sqrt(a)
-                    ninf = jnp.full(dx.shape, -jnp.inf, jnp.float32)
-                    mv_base = sph_span + vol_span + tri_span
-                    for v, (c0, nc) in enumerate(mv_spans):
-                        u_v = us[off + 4 + n_vol + v]
-                        t1 = _mv_min_t(mv_g_ref, c0, nc, o3, d3, ninf)
-                        t2 = _mv_min_t(mv_g_ref, c0, nc, o3, d3,
-                                       t1 + T_MIN)
-                        h1 = jnp.maximum(t1, T_MIN)
-                        valid = ((t1 < jnp.inf) & (t2 < jnp.inf)
-                                 & (h1 < t2))
-                        h1 = jnp.maximum(h1, 0.0)
-                        dist_inside = (t2 - h1) * ray_len_mv
-                        fb = _MV + v * _MV_STRIDE
-                        nid = f(fb + 0)
-                        hit_dist = nid * jnp.log(jnp.maximum(u_v, 1e-37))
-                        ti = h1 + hit_dist / ray_len_mv
-                        won = (valid & (hit_dist <= dist_inside)
-                               & (ti < t_best))
-                        t_best = jnp.where(won, ti, t_best)
-                        if mixn_tab is not None:
-                            # nested-mix scheme: the carry row _BS_AL is
-                            # the RAW delegated material id; the shade
-                            # stage's resolution chain fetches the rest
-                            vals = {_BS_RAD: 1.0, _BS_AL + 0: f(fb + 13)}
-                        else:
-                            vals = {
-                                _BS_RAD: 1.0,
-                                _BS_AL + 0: f(fb + 1),
-                                _BS_AL + 1: f(fb + 2),
-                                _BS_AL + 2: f(fb + 3),
-                                _BS_FUZZ: f(fb + 4), _BS_IR: f(fb + 5),
-                                _BS_EM + 0: f(fb + 6),
-                                _BS_EM + 1: f(fb + 7),
-                                _BS_EM + 2: f(fb + 8),
-                                _BS_LAM: f(fb + 9), _BS_MET: f(fb + 10),
-                                _BS_DIE: f(fb + 11), _BS_EMI: f(fb + 12),
-                            }
-                        par = tuple(
-                            jnp.where(won, zero + vals[j], par[j])
-                            if j in vals else par[j]
-                            for j in range(16))
-                        win = jnp.where(won, 2.0, win)
-                        if record:
-                            code = jnp.where(won, mv_base + v, code)
-                hit = t_best < jnp.inf
-                rec_bits_write = None
-                if record:
-                    # deferred to the shade stage: the record packs the
-                    # winner slot (bits 0-26) WITH the bounce's discrete
-                    # shading decisions (front<<27, metal_ok<<28,
-                    # dielectric_reflect<<29) so the replay is EXACT —
-                    # code and bits occupy disjoint bits, + is |
-                    def rec_bits_write(bits, code=code, hit=hit, b=b):
-                        roff = pl.multiple_of(b * BLOCK_ROWS, BLOCK_ROWS)
-                        record_ref[pl.ds(roff, BLOCK_ROWS), :] = (
-                            jnp.where(hit, code + bits, -1))
-
-                safe_t = jnp.where(hit, t_best, 1.0)
-                ptx = ox + safe_t * dx
-                pty = oy + safe_t * dy
-                ptz = oz + safe_t * dz
-                # GEO rows: sphere center + radius, or triangle flat
-                # normal.  win: 1.0 = solid sphere, 2.0 = volume sphere
-                # (dummy (1,0,0) normal, lib/volume.rs:66-72), 0.0 = tri.
-                win_sph = (win > 0.5) & (win < 1.5)
-                win_vol = win > 1.5
-                gx = par[_BS_GEO + 0]
-                gy = par[_BS_GEO + 1]
-                gz = par[_BS_GEO + 2]
-                # (p - c) / r, division as in sphere_normal
-                # (ops/intersect.py) for bitwise engine parity
-                g_rad = jnp.where(par[_BS_RAD] > 0.0, par[_BS_RAD], 1.0)
-                nx = jnp.where(win_sph, (ptx - gx) / g_rad, gx)
-                ny = jnp.where(win_sph, (pty - gy) / g_rad, gy)
-                nz = jnp.where(win_sph, (ptz - gz) / g_rad, gz)
-                nx = jnp.where(win_vol, 1.0, nx)
-                ny = jnp.where(win_vol, 0.0, ny)
-                nz = jnp.where(win_vol, 0.0, nz)
-                if debug is not None:
-                    # inspection views (lib/core/render.rs:42-49): one
-                    # intersection, no scatter chain — matches the XLA
-                    # integrator's MODE_NORMAL/MODE_RANDOM branch
-                    bg_r, bg_g, bg_b = background(dx, dy, dz)
-                    if debug == "normal":
-                        fr = _dot3(dx, dy, dz, nx, ny, nz) < 0.0
-                        sg = jnp.where(fr, 1.0, -1.0)
-                        fx, fy, fz = nx * sg, ny * sg, nz * sg
-                        inv_n = jax.lax.rsqrt(jnp.maximum(
-                            _dot3(fx, fy, fz, fx, fy, fz), 1e-30))
-                        cr = 0.5 * (fx * inv_n + 1.0)
-                        cg = 0.5 * (fy * inv_n + 1.0)
-                        cb2 = 0.5 * (fz * inv_n + 1.0)
-                    else:  # "random": hit -> black (render.rs:46-48)
-                        cr = cg = cb2 = zero
-                    rad_r = jnp.where(hit, cr, bg_r)
-                    rad_g = jnp.where(hit, cg, bg_g)
-                    rad_b = jnp.where(hit, cb2, bg_b)
-                    return (b + 1, ox, oy, oz, dx, dy, dz,
-                            thr_r, thr_g, thr_b, rad_r, rad_g, rad_b,
-                            *miss, zero)
-
-                if mixn_tab is not None:
-                    # nested mixes: the carry's _BS_AL row is the RAW
-                    # material id; resolve the DAG + fetch the leaf's
-                    # constants (hit-independent given the id — the
-                    # coins are bounce-local uniforms)
-                    par = _mixn_resolve(mixn_tab, par, u_mixn, d_mix)
-                al_r = par[_BS_AL + 0]
-                al_g = par[_BS_AL + 1]
-                al_b = par[_BS_AL + 2]
-                fuzz = par[_BS_FUZZ]
-                ir = par[_BS_IR]
-                em_r = par[_BS_EM + 0]
-                em_g = par[_BS_EM + 1]
-                em_b = par[_BS_EM + 2]
-                is_lam = par[_BS_LAM] > 0.5
-                is_met = par[_BS_MET] > 0.5
-                is_die = par[_BS_DIE] > 0.5
-                is_emi = par[_BS_EMI] > 0.5
-                # the _BS_ block has no spare row: Isotropic is the winner
-                # whose four explicit one-hots are all zero (_mat_rows only
-                # sets LAM/MET/DIE/EMI); non-hit lanes are masked by ``hit``
-                # downstream so the complement is safe
-                is_iso = ~(is_lam | is_met | is_die | is_emi) if iso \
-                    else (one < zero)
-                return _shade(b, a, hit, ptx, pty, ptz, nx, ny, nz,
-                              al_r, al_g, al_b, fuzz, ir, em_r, em_g, em_b,
-                              is_lam, is_met, is_die, is_emi, is_iso,
-                              alive, u1, u2, u_coin, u_r,
-                              ox, oy, oz, dx, dy, dz,
-                              thr_r, thr_g, thr_b, rad_r, rad_g, rad_b,
-                              miss, rec_bits_write=rec_bits_write)
-
-            # ---- intersect: unrolled sphere loop, direct quadratic form
-            t_best = jnp.full_like(dx, jnp.inf)
-            best = jnp.full(dx.shape, -1, jnp.int32)
-            if n_vol:
-                ray_len = jnp.sqrt(a)
-            for i in range(n_spheres):
-                base = _SPHERES + i * stride
-                cx, cy, cz = f(base), f(base + 1), f(base + 2)
-                r = f(base + 3)
-                ocx, ocy, ocz = ox - cx, oy - cy, oz - cz
-                half_b = _dot3(ocx, ocy, ocz, dx, dy, dz)
-                cq = _dot3(ocx, ocy, ocz, ocx, ocy, ocz) - r * r
-                disc = half_b * half_b - a * cq
-                ok = disc >= 0.0
-                sq = jnp.sqrt(jnp.maximum(disc, 0.0))
-                t1 = (-half_b - sq) * inv_a
-                t2 = (-half_b + sq) * inv_a
-                if i >= n_solid:
-                    # constant-density volume (lib/volume.rs:35-73), the
-                    # exact op order of ops/intersect.py sphere_ts: clamp
-                    # the boundary window, exponential free flight with
-                    # THIS volume's statically-indexed uniform column
-                    u_v = us[off + 4 + (i - n_solid)]
-                    nid = f(base + stride - 1)
-                    h1 = jnp.maximum(t1, T_MIN)
-                    h2 = jnp.where(t2 >= t1 + T_MIN, t2, jnp.inf)
-                    valid = ok & (h1 < h2)
-                    h1 = jnp.maximum(h1, 0.0)
-                    dist_inside = (h2 - h1) * ray_len
-                    hit_dist = nid * jnp.log(jnp.maximum(u_v, 1e-37))
-                    ti = h1 + hit_dist / ray_len
-                    ti = jnp.where(valid & (hit_dist <= dist_inside),
-                                   ti, jnp.inf)
-                    better = ti < t_best
-                else:
-                    t1ok = (t1 >= T_MIN) & (t1 <= t_best)
-                    t2ok = (t2 >= T_MIN) & (t2 <= t_best)
-                    ti = jnp.where(t1ok, t1, jnp.where(t2ok, t2, jnp.inf))
-                    better = ok & (ti < t_best)
-                t_best = jnp.where(better, ti, t_best)
-                best = jnp.where(better, i, best)
-
-            # ---- intersect: triangle chunks as MXU matmuls
-            if tri is not None:
-                tri_c, tri_s, tri_s2, tri_tb = tri
-                t_tri, tpar, tpar2 = _tri_intersect(
-                    tri_c, tri_s, tri_tb, ox, oy, oz, dx, dy, dz,
-                    tri_s2=tri_s2)
-                tri_win = t_tri < t_best
-                t_best = jnp.where(tri_win, t_tri, t_best)
-                hit = (best >= 0) | (t_tri < jnp.inf)
-            else:
-                hit = best >= 0
-
-            # ---- winner constants via unrolled select chains (no gathers)
-            scx = scy = scz = inv_r = zero
-            al_r = al_g = al_b = fuzz = ir = em_r = em_g = em_b = zero
-            false_ = one < zero
-            is_lam = is_met = is_die = is_emi = is_iso = false_
-            vol_sel = false_
-            if mix:
-                # leaf-B parameter set + mix factor (blended after the
-                # triangle merge with the level-0 coin)
-                fac = zero
-                al2_r = al2_g = al2_b = fuzz2 = ir2 = zero
-                em2_r = em2_g = em2_b = zero
-                is_lam2 = is_met2 = is_die2 = is_emi2 = is_iso2 = false_
-            for i in range(n_spheres):
-                base = _SPHERES + i * stride
-                sel = best == i
-                pick = lambda cur, v: jnp.where(sel, v, cur)
-                scx = pick(scx, f(base + 0))
-                scy = pick(scy, f(base + 1))
-                scz = pick(scz, f(base + 2))
-                inv_r = pick(inv_r, 1.0 / f(base + 3))
-                al_r = pick(al_r, f(base + 4))
-                al_g = pick(al_g, f(base + 5))
-                al_b = pick(al_b, f(base + 6))
-                fuzz = pick(fuzz, f(base + 7))
-                ir = pick(ir, f(base + 8))
-                em_r = pick(em_r, f(base + 9))
-                em_g = pick(em_g, f(base + 10))
-                em_b = pick(em_b, f(base + 11))
-                if i >= n_solid:
-                    vol_sel = vol_sel | sel
-                k = sphere_kinds[i]  # static: int | (kind_a, kind_b)
-                k_a, k_b = k if isinstance(k, tuple) else (k, k)
-                if k_a == M.LAMBERTIAN:
-                    is_lam = is_lam | sel
-                elif k_a == M.METAL:
-                    is_met = is_met | sel
-                elif k_a == M.DIELECTRIC:
-                    is_die = is_die | sel
-                elif k_a == M.EMISSION:
-                    is_emi = is_emi | sel
-                elif k_a == M.ISOTROPIC:
-                    is_iso = is_iso | sel
-                if mix:
-                    fac = pick(fac, f(base + 12))
-                    al2_r = pick(al2_r, f(base + 13))
-                    al2_g = pick(al2_g, f(base + 14))
-                    al2_b = pick(al2_b, f(base + 15))
-                    fuzz2 = pick(fuzz2, f(base + 16))
-                    ir2 = pick(ir2, f(base + 17))
-                    em2_r = pick(em2_r, f(base + 18))
-                    em2_g = pick(em2_g, f(base + 19))
-                    em2_b = pick(em2_b, f(base + 20))
-                    if k_b == M.LAMBERTIAN:
-                        is_lam2 = is_lam2 | sel
-                    elif k_b == M.METAL:
-                        is_met2 = is_met2 | sel
-                    elif k_b == M.DIELECTRIC:
-                        is_die2 = is_die2 | sel
-                    elif k_b == M.EMISSION:
-                        is_emi2 = is_emi2 | sel
-                    elif k_b == M.ISOTROPIC:
-                        is_iso2 = is_iso2 | sel
-
-            # hit point + front-face-flipped outward normal (safe t on miss
-            # lanes: an inf primal in a masked branch still poisons the vjp)
-            safe_t = jnp.where(hit, t_best, 1.0)
-            ptx = ox + safe_t * dx
-            pty = oy + safe_t * dy
-            ptz = oz + safe_t * dz
-            nx = (ptx - scx) * inv_r
-            ny = (pty - scy) * inv_r
-            nz = (ptz - scz) * inv_r
-            if n_vol:
-                # volume dummy normal (1,0,0) (lib/volume.rs:66-72;
-                # ops/intersect.py sphere_normal)
-                nx = jnp.where(vol_sel, 1.0, nx)
-                ny = jnp.where(vol_sel, 0.0, ny)
-                nz = jnp.where(vol_sel, 0.0, nz)
-
-            # merge the winning triangle's shading constants (flat normal +
-            # material values + kind one-hot rows of the S matrix)
-            if tri is not None:
-                def m(cur, row):
-                    return jnp.where(tri_win, tpar[row], cur)
-                nx = m(nx, _TS_NRM + 0)
-                ny = m(ny, _TS_NRM + 1)
-                nz = m(nz, _TS_NRM + 2)
-                al_r = m(al_r, _TS_AL + 0)
-                al_g = m(al_g, _TS_AL + 1)
-                al_b = m(al_b, _TS_AL + 2)
-                fuzz = m(fuzz, _TS_FUZZ)
-                ir = m(ir, _TS_IR)
-                em_r = m(em_r, _TS_EM + 0)
-                em_g = m(em_g, _TS_EM + 1)
-                em_b = m(em_b, _TS_EM + 2)
-                t_lam = tpar[_TS_LAM] > 0.5
-                t_met = tpar[_TS_MET] > 0.5
-                t_die = tpar[_TS_DIE] > 0.5
-                t_emi = tpar[_TS_EMI] > 0.5
-                t_iso = tpar[_TS_ISO] > 0.5
-                # Mosaic cannot select on i1 vectors; boolean algebra
-                is_lam = (tri_win & t_lam) | (~tri_win & is_lam)
-                is_met = (tri_win & t_met) | (~tri_win & is_met)
-                is_die = (tri_win & t_die) | (~tri_win & is_die)
-                is_emi = (tri_win & t_emi) | (~tri_win & is_emi)
-                is_iso = (tri_win & t_iso) | (~tri_win & is_iso)
-                if mix:
-                    def m2(cur, row):
-                        return jnp.where(tri_win, tpar2[row], cur)
-                    fac = m2(fac, _T2_FAC)
-                    al2_r = m2(al2_r, _T2_AL + 0)
-                    al2_g = m2(al2_g, _T2_AL + 1)
-                    al2_b = m2(al2_b, _T2_AL + 2)
-                    fuzz2 = m2(fuzz2, _T2_FUZZ)
-                    ir2 = m2(ir2, _T2_IR)
-                    em2_r = m2(em2_r, _T2_EM + 0)
-                    em2_g = m2(em2_g, _T2_EM + 1)
-                    em2_b = m2(em2_b, _T2_EM + 2)
-                    t2l = tpar2[_T2_LAM] > 0.5
-                    t2m = tpar2[_T2_MET] > 0.5
-                    t2d = tpar2[_T2_DIE] > 0.5
-                    t2e = tpar2[_T2_EMI] > 0.5
-                    t2i = tpar2[_T2_ISO] > 0.5
-                    is_lam2 = (tri_win & t2l) | (~tri_win & is_lam2)
-                    is_met2 = (tri_win & t2m) | (~tri_win & is_met2)
-                    is_die2 = (tri_win & t2d) | (~tri_win & is_die2)
-                    is_emi2 = (tri_win & t2e) | (~tri_win & is_emi2)
-                    is_iso2 = (tri_win & t2i) | (~tri_win & is_iso2)
-
-            if mix:
-                # level-0 mix coin: u >= factor picks the FIRST leaf
-                # (lib/materials.rs:151; ops/shade.py resolve_mix).  Non-mix
-                # primitives bake leaf A == leaf B and factor == 0, making
-                # the blend the identity for them.
-                pick_a = u_mix >= fac
-                al_r = jnp.where(pick_a, al_r, al2_r)
-                al_g = jnp.where(pick_a, al_g, al2_g)
-                al_b = jnp.where(pick_a, al_b, al2_b)
-                fuzz = jnp.where(pick_a, fuzz, fuzz2)
-                ir = jnp.where(pick_a, ir, ir2)
-                em_r = jnp.where(pick_a, em_r, em2_r)
-                em_g = jnp.where(pick_a, em_g, em2_g)
-                em_b = jnp.where(pick_a, em_b, em2_b)
-                is_lam = (pick_a & is_lam) | (~pick_a & is_lam2)
-                is_met = (pick_a & is_met) | (~pick_a & is_met2)
-                is_die = (pick_a & is_die) | (~pick_a & is_die2)
-                is_emi = (pick_a & is_emi) | (~pick_a & is_emi2)
-                is_iso = (pick_a & is_iso) | (~pick_a & is_iso2)
-
-            return _shade(b, a, hit, ptx, pty, ptz, nx, ny, nz,
-                          al_r, al_g, al_b, fuzz, ir, em_r, em_g, em_b,
-                          is_lam, is_met, is_die, is_emi, is_iso,
-                          alive, u1, u2, u_coin, u_r,
-                          ox, oy, oz, dx, dy, dz,
-                          thr_r, thr_g, thr_b, rad_r, rad_g, rad_b,
-                          miss)
-
-        def bounce_cond(state):
-            b, *_, alive_f = state
-            return (b < max_depth) & (jnp.max(alive_f) > 0.0)
-
-        if gens > 1:
-            # ---- generation-scheduled wavefront (see docstring) ----
-            i32 = jnp.int32
-            zero_i = jnp.zeros(dx.shape, i32)
-
-            def sched_cond(st):
-                return jnp.max(st[13]) > 0.0
-
-            def sched_body(st):
-                core = st[:14]
-                ray_cur, g_lane = st[14], st[15]
-                accs = list(st[16:])
-                was_alive = core[13] > 0.0
-                (b, ox, oy, oz, dx, dy, dz,
-                 thr_r, thr_g, thr_b, rad_r, rad_g, rad_b,
-                 alive_f) = bounce_body(core, ray_u32=ray_cur)
-                # per-lane depth cutoff (the single-gen path encodes it in
-                # the loop condition; per-lane schedules need it per lane)
-                alive = (alive_f > 0.0) & (b < max_depth)
-                retired = was_alive & ~alive
-                for k in range(gens):
-                    sel = retired & (g_lane == k)
-                    accs[3 * k + 0] += jnp.where(sel, rad_r, 0.0)
-                    accs[3 * k + 1] += jnp.where(sel, rad_g, 0.0)
-                    accs[3 * k + 2] += jnp.where(sel, rad_b, 0.0)
-                # refill: this lane's ray of the NEXT generation
-                refill = retired & (g_lane < gens - 1)
-                g_new = g_lane + refill.astype(i32)
-                px_n, py_n = zero, zero
-                ray_n = jnp.zeros(dx.shape, jnp.uint32)
-                for k in range(1, gens):
-                    selk = g_new == k
-                    px_n = jnp.where(selk, gen_slice(px_full, k), px_n)
-                    py_n = jnp.where(selk, gen_slice(py_full, k), py_n)
-                    ray_n = jnp.where(selk, gen_slice(ray_full, k), ray_n)
-                nox, noy, noz, ndx, ndy, ndz = camera_ray(ray_n, px_n,
-                                                          py_n)
-
-                def m(new, old):
-                    return jnp.where(refill, new, old)
-
-                ox, oy, oz = m(nox, ox), m(noy, oy), m(noz, oz)
-                dx, dy, dz = m(ndx, dx), m(ndy, dy), m(ndz, dz)
-                thr_r, thr_g, thr_b = m(one, thr_r), m(one, thr_g), \
-                    m(one, thr_b)
-                rad_r = jnp.where(retired, 0.0, rad_r)
-                rad_g = jnp.where(retired, 0.0, rad_g)
-                rad_b = jnp.where(retired, 0.0, rad_b)
-                b = jnp.where(refill, 0, b)
-                ray_cur = jnp.where(refill, ray_n, ray_cur)
-                alive_f = jnp.where(refill | alive, 1.0, 0.0)
-                return (b, ox, oy, oz, dx, dy, dz,
-                        thr_r, thr_g, thr_b, rad_r, rad_g, rad_b,
-                        alive_f, ray_cur, g_new, *accs)
-
-            st0 = (zero_i, ox, oy, oz, dx, dy, dz,
-                   one, one, one, zero, zero, zero, one,
-                   ray_u32, zero_i) + (zero,) * (3 * gens)
-            fin = jax.lax.while_loop(sched_cond, sched_body, st0)
-            accs = fin[16:]
-            rad_r = jnp.concatenate([accs[3 * k + 0] for k in range(gens)],
-                                    axis=0)
-            rad_g = jnp.concatenate([accs[3 * k + 1] for k in range(gens)],
-                                    axis=0)
-            rad_b = jnp.concatenate([accs[3 * k + 2] for k in range(gens)],
-                                    axis=0)
-            return rad_r, rad_g, rad_b
-
-        miss0 = (zero,) * 6 if skymap else ()
-        state = (jnp.int32(0), ox, oy, oz, dx, dy, dz,
-                 one, one, one, zero, zero, zero, *miss0, one)
-        if unrolled or os.environ.get("RTRT_MEGAKERNEL_UNROLL") == "1":
-            # Static chain: required under vjp; also the perf-ablation knob
-            # (measured equal on benchmark.json — docs/performance.md).
-            # NOTE a per-bounce lax.cond all-dead skip was tried here and
-            # REVERTED: Mosaic cannot legalize the scf.if produced by
-            # differentiating a value-carrying cond inside the fused grad
-            # kernel ("failed to legalize operation 'scf.if'" on v5e),
-            # regardless of carry dtypes.
-            for _ in range(max_depth):
-                state = bounce_body(state)
-        else:
-            state = jax.lax.while_loop(bounce_cond, bounce_body, state)
+    def shade(b, a, hit, ptx, pty, ptz, nx, ny, nz,
+              al_r, al_g, al_b, fuzz, ir, em_r, em_g, em_b,
+              is_lam, is_met, is_die, is_emi, is_iso,
+              alive, u1, u2, u_coin, u_r,
+              ox, oy, oz, dx, dy, dz,
+              thr_r, thr_g, thr_b, rad_r, rad_g, rad_b, miss):
+        """Bounce tail: background on miss, front-face flip, material
+        lobes, throughput/radiance update -> next state.  ``miss``: () or
+        the 6 skymap miss-record registers."""
+        missed = alive & ~hit
         if skymap:
-            return tuple(state[10:19])
-        return state[10], state[11], state[12]
-
-
-# Forward-kernel bounce-chain policy: the UNROLLED static chain beats the
-# early-out while_loop on real TPUs for shallow chains — MEASURED 245M vs
-# 157M rays/s fwd on benchmark.json 512x512 spp8 depth6 (v5e): Mosaic's
-# loop-carry handling costs more than the dead-bounce work the early-out
-# saves.  Deep chains (mesh bench depth 50) keep the while_loop, where the
-# dead-lane integral is far larger and the unrolled program bloats.
-#
-# TRIANGLE scenes always keep the while_loop: unrolling the chain with the
-# in-kernel triangle matmuls crashes the Mosaic compiler on v5e (SIGABRT,
-# "Check failed: limits[i] <= dim(i) (2 vs. 1)") at ANY triangle count —
-# measured fwd (600 tris: unrolled FAILS, while_loop ok) and in every
-# vjp-unrolled grad variant.  Consequence: brute-kernel TRIANGLE gradients
-# (which require the unrolled chain under jax.vjp) cannot compile on real
-# TPUs at all; diff/grad.py routes them to the BVH record+replay path.
-UNROLL_MAX_DEPTH = 12
-
-
-def _chain_unrolled(max_depth: int, has_tris: bool = False) -> bool:
-    knob = os.environ.get("RTRT_MEGAKERNEL_UNROLL")
-    if knob is not None:
-        return knob == "1"
-    return max_depth <= UNROLL_MAX_DEPTH and not has_tris
-
-
-def _make_kernel(n_spheres, max_depth, sphere_kinds, bg_kind, clay,
-                 tri_kinds=(), tri_tb=0, mix=False, n_vol=0):
-    """Forward kernel: sphere_kinds is a static tuple of material-kind ids,
-    one per sphere; fparams rides scalar-prefetch SMEM; triangle constant
-    matrices (when the scene has triangles) ride VMEM.  ``mix`` adds the S2
-    second-leaf matrix operand."""
-
-    n_out = 9 if bg_kind == B.SKYMAP else 3
-
-    def kernel(iparams, fparams, *refs):
-        if tri_tb and mix:
-            tri_c_ref, tri_s_ref, tri_s2_ref = refs[:3]
-            ray_id_ref, px_ref, py_ref = refs[3:6]
-            outs = refs[6:]
-            tri = (tri_c_ref[...], tri_s_ref[...], tri_s2_ref[...], tri_tb)
-        elif tri_tb:
-            tri_c_ref, tri_s_ref, ray_id_ref, px_ref, py_ref = refs[:5]
-            outs = refs[5:]
-            tri = (tri_c_ref[...], tri_s_ref[...], None, tri_tb)
+            # record the escape (a path misses at most once); the
+            # equirect texel fetch happens OUTSIDE the kernel
+            mdx, mdy, mdz, mt_r, mt_g, mt_b = miss
+            miss = (jnp.where(missed, dx, mdx),
+                    jnp.where(missed, dy, mdy),
+                    jnp.where(missed, dz, mdz),
+                    jnp.where(missed, thr_r, mt_r),
+                    jnp.where(missed, thr_g, mt_g),
+                    jnp.where(missed, thr_b, mt_b))
         else:
-            ray_id_ref, px_ref, py_ref = refs[:3]
-            outs = refs[3:]
-            tri = None
-        assert len(outs) == n_out
-        seed_hi = iparams[0].astype(jnp.uint32)
-        seed_lo = iparams[1].astype(jnp.uint32)
-        ray_id = ray_id_ref[...]
-        ray_u32 = ray_id.astype(jnp.uint32)
-        k0 = jnp.full(ray_id.shape, 0, jnp.uint32) + seed_hi
-        k1 = jnp.full(ray_id.shape, 0, jnp.uint32) + seed_lo
+            # background on miss (lib/core/render.rs:57)
+            bg_r, bg_g, bg_b = background(dx, dy, dz)
+            rad_r = rad_r + jnp.where(missed, thr_r * bg_r, 0.0)
+            rad_g = rad_g + jnp.where(missed, thr_g * bg_g, 0.0)
+            rad_b = rad_b + jnp.where(missed, thr_b * bg_b, 0.0)
 
-        vals = _radiance_math(
-            lambda i: fparams[i], k0, k1, ray_u32, px_ref[...], py_ref[...],
-            n_spheres=n_spheres, max_depth=max_depth,
-            sphere_kinds=sphere_kinds, bg_kind=bg_kind, clay=clay,
-            unrolled=_chain_unrolled(max_depth, bool(tri_tb)), tri=tri,
-            tri_kinds=tri_kinds, mix=mix, n_vol=n_vol,
-        )
+        front = _dot3(dx, dy, dz, nx, ny, nz) < 0.0
+        sgn = jnp.where(front, 1.0, -1.0)
+        nx, ny, nz = nx * sgn, ny * sgn, nz * sgn
+
+        # unit-sphere-surface sample from (u1, u2)
+        zs = 1.0 - 2.0 * u1
+        rs = jnp.sqrt(jnp.maximum(0.0, 1.0 - zs * zs))
+        phi = (2.0 * np.float32(np.pi)) * u2
+        sx = rs * jnp.cos(phi)
+        sy = rs * jnp.sin(phi)
+        sz = zs
+
+        def lambert_dir():
+            ldx, ldy, ldz = nx + sx, ny + sy, nz + sz
+            deg = (
+                (jnp.abs(ldx) < 1e-8)
+                & (jnp.abs(ldy) < 1e-8)
+                & (jnp.abs(ldz) < 1e-8)
+            )
+            return (
+                jnp.where(deg, nx, ldx),
+                jnp.where(deg, ny, ldy),
+                jnp.where(deg, nz, ldz),
+            )
+
+        scatters = zero < one
+        if clay:
+            at_r = at_g = at_b = zero + 0.8
+            ndx, ndy, ndz = lambert_dir()
+        else:
+            at_r, at_g, at_b = zero, zero, zero
+            ndx, ndy, ndz = nx, ny, nz
+
+            if lam:
+                ldx, ldy, ldz = lambert_dir()
+                at_r = jnp.where(is_lam, al_r, at_r)
+                at_g = jnp.where(is_lam, al_g, at_g)
+                at_b = jnp.where(is_lam, al_b, at_b)
+                ndx = jnp.where(is_lam, ldx, ndx)
+                ndy = jnp.where(is_lam, ldy, ndy)
+                ndz = jnp.where(is_lam, ldz, ndz)
+
+            if met:
+                dn = _dot3(dx, dy, dz, nx, ny, nz)
+                rfx = dx - 2.0 * dn * nx
+                rfy = dy - 2.0 * dn * ny
+                rfz = dz - 2.0 * dn * nz
+                inv_len = jax.lax.rsqrt(jnp.maximum(
+                    _dot3(rfx, rfy, rfz, rfx, rfy, rfz), 1e-30
+                ))
+                mdx = rfx * inv_len + fuzz * sx
+                mdy = rfy * inv_len + fuzz * sy
+                mdz = rfz * inv_len + fuzz * sz
+                m_ok = _dot3(mdx, mdy, mdz, nx, ny, nz) > 0.0
+                at_r = jnp.where(is_met, jnp.where(m_ok, al_r, 0.0), at_r)
+                at_g = jnp.where(is_met, jnp.where(m_ok, al_g, 0.0), at_g)
+                at_b = jnp.where(is_met, jnp.where(m_ok, al_b, 0.0), at_b)
+                ndx = jnp.where(is_met, mdx, ndx)
+                ndy = jnp.where(is_met, mdy, ndy)
+                ndz = jnp.where(is_met, mdz, ndz)
+                scatters = (is_met & m_ok) | (~is_met & scatters)
+
+            if die:
+                ratio = jnp.where(front, 1.0 / ir, ir)
+                inv_len = jax.lax.rsqrt(jnp.maximum(a, 1e-30))
+                udx, udy, udz = dx * inv_len, dy * inv_len, dz * inv_len
+                cos_t = jnp.minimum(-_dot3(nx, ny, nz, udx, udy, udz), 1.0)
+                sin_t = jnp.sqrt(jnp.maximum(0.0, 1.0 - cos_t * cos_t))
+                r0 = (1.0 - ratio) / (1.0 + ratio)
+                r0 = r0 * r0
+                omc = 1.0 - cos_t
+                omc2 = omc * omc
+                schl = r0 + (1.0 - r0) * omc2 * omc2 * omc
+                refl = (ratio * sin_t > 1.0) | (schl > u_coin)
+                udn = _dot3(udx, udy, udz, nx, ny, nz)
+                rx = udx - 2.0 * udn * nx
+                ry = udy - 2.0 * udn * ny
+                rz = udz - 2.0 * udn * nz
+                perp_x = ratio * (udx + cos_t * nx)
+                perp_y = ratio * (udy + cos_t * ny)
+                perp_z = ratio * (udz + cos_t * nz)
+                par = -jnp.sqrt(jnp.maximum(jnp.abs(
+                    1.0 - _dot3(perp_x, perp_y, perp_z,
+                                perp_x, perp_y, perp_z)
+                ), 1e-12))
+                at_r = jnp.where(is_die, 1.0, at_r)
+                at_g = jnp.where(is_die, 1.0, at_g)
+                at_b = jnp.where(is_die, 1.0, at_b)
+                ndx = jnp.where(is_die, jnp.where(refl, rx, perp_x + par * nx),
+                                ndx)
+                ndy = jnp.where(is_die, jnp.where(refl, ry, perp_y + par * ny),
+                                ndy)
+                ndz = jnp.where(is_die, jnp.where(refl, rz, perp_z + par * nz),
+                                ndz)
+
+            if emi:
+                at_r = jnp.where(is_emi, em_r, at_r)
+                at_g = jnp.where(is_emi, em_g, at_g)
+                at_b = jnp.where(is_emi, em_b, at_b)
+                scatters = scatters & ~is_emi
+
+            if iso:
+                # Isotropic phase function (lib/volume.rs:75-88): new dir =
+                # unit-sphere-VOLUME sample — the surface sample scaled by
+                # cbrt01(u), the exp/log form shared with ops/shade.py
+                crt = jnp.exp(jnp.log(jnp.maximum(u_r, 1e-38))
+                              * (1.0 / 3.0))
+                at_r = jnp.where(is_iso, al_r, at_r)
+                at_g = jnp.where(is_iso, al_g, at_g)
+                at_b = jnp.where(is_iso, al_b, at_b)
+                ndx = jnp.where(is_iso, sx * crt, ndx)
+                ndy = jnp.where(is_iso, sy * crt, ndy)
+                ndz = jnp.where(is_iso, sz * crt, ndz)
+
+        terminal = alive & hit & ~scatters
+        rad_r = rad_r + jnp.where(terminal, thr_r * at_r, 0.0)
+        rad_g = rad_g + jnp.where(terminal, thr_g * at_g, 0.0)
+        rad_b = rad_b + jnp.where(terminal, thr_b * at_b, 0.0)
+
+        cont = alive & hit & scatters
+        thr_r = jnp.where(cont, thr_r * at_r, thr_r)
+        thr_g = jnp.where(cont, thr_g * at_g, thr_g)
+        thr_b = jnp.where(cont, thr_b * at_b, thr_b)
+        ox = jnp.where(cont, ptx, ox)
+        oy = jnp.where(cont, pty, oy)
+        oz = jnp.where(cont, ptz, oz)
+        dx = jnp.where(cont, ndx, dx)
+        dy = jnp.where(cont, ndy, dy)
+        dz = jnp.where(cont, ndz, dz)
+        alive_f = jnp.where(cont, 1.0, 0.0)
+        return (b + 1, ox, oy, oz, dx, dy, dz,
+                thr_r, thr_g, thr_b, rad_r, rad_g, rad_b,
+                *miss, alive_f)
+
+    # The liveness mask rides the loop carry as f32.
+    def bounce_body(state):
+        (b, ox, oy, oz, dx, dy, dz,
+         thr_r, thr_g, thr_b, rad_r, rad_g, rad_b,
+         *miss, alive_f) = state
+        miss = tuple(miss)
+        alive = alive_f > 0.0
+        # per-bounce uniforms (stream 1 + b).  Column layout matches the
+        # XLA engine bit-for-bit (ops/shade.py shade_uniforms): [mix coins
+        # x MAX_MIX_DEPTH if has_mix] ++ [dir1 dir2 coin radius].  Only the
+        # level-0 mix coin is consumed (XLA's levels 1-3 are no-ops on
+        # single-level mixes), and radius only when an Isotropic exists.
+        # Volume scenes draw one extra column per volume object (the
+        # free-flight uniform; XLA: u_vol = u[:, n_shade:]).
+        off = M.MAX_MIX_DEPTH if mix else 0
+        n_u = off + ((4 if iso else 3) if n_vol == 0 else 4 + n_vol)
+        us = _stream_uniforms(k0, k1, ray_u32, 1 + b, n_u)
+        u_mix = us[0] if mix else None
+        u1, u2, u_coin = us[off], us[off + 1], us[off + 2]
+        u_r = us[off + 3] if iso else zero
+
+        a = _dot3(dx, dy, dz, dx, dy, dz)
+        inv_a = 1.0 / a
+
+        # ---- intersect: unrolled sphere loop, direct quadratic form
+        t_best = jnp.full_like(dx, jnp.inf)
+        best = jnp.full(dx.shape, -1, jnp.int32)
+        if n_vol:
+            ray_len = jnp.sqrt(a)
+        for i in range(n_spheres):
+            base = _SPHERES + i * stride
+            cx, cy, cz = f(base), f(base + 1), f(base + 2)
+            r = f(base + 3)
+            ocx, ocy, ocz = ox - cx, oy - cy, oz - cz
+            half_b = _dot3(ocx, ocy, ocz, dx, dy, dz)
+            cq = _dot3(ocx, ocy, ocz, ocx, ocy, ocz) - r * r
+            disc = half_b * half_b - a * cq
+            ok = disc >= 0.0
+            sq = jnp.sqrt(jnp.maximum(disc, 0.0))
+            t1 = (-half_b - sq) * inv_a
+            t2 = (-half_b + sq) * inv_a
+            if i >= n_solid:
+                # constant-density volume (lib/volume.rs:35-73), the exact
+                # op order of ops/intersect.py sphere_ts: clamp the
+                # boundary window, exponential free flight with THIS
+                # volume's statically-indexed uniform column
+                u_v = us[off + 4 + (i - n_solid)]
+                nid = f(base + stride - 1)
+                h1 = jnp.maximum(t1, T_MIN)
+                h2 = jnp.where(t2 >= t1 + T_MIN, t2, jnp.inf)
+                valid = ok & (h1 < h2)
+                h1 = jnp.maximum(h1, 0.0)
+                dist_inside = (h2 - h1) * ray_len
+                hit_dist = nid * jnp.log(jnp.maximum(u_v, 1e-37))
+                ti = h1 + hit_dist / ray_len
+                ti = jnp.where(valid & (hit_dist <= dist_inside),
+                               ti, jnp.inf)
+                better = ti < t_best
+            else:
+                t1ok = (t1 >= T_MIN) & (t1 <= t_best)
+                t2ok = (t2 >= T_MIN) & (t2 <= t_best)
+                ti = jnp.where(t1ok, t1, jnp.where(t2ok, t2, jnp.inf))
+                better = ok & (ti < t_best)
+            t_best = jnp.where(better, ti, t_best)
+            best = jnp.where(better, i, best)
+        hit = best >= 0
+
+        # ---- winner constants via unrolled select chains (no gathers)
+        scx = scy = scz = inv_r = zero
+        al_r = al_g = al_b = fuzz = ir = em_r = em_g = em_b = zero
+        false_ = one < zero
+        is_lam = is_met = is_die = is_emi = is_iso = false_
+        vol_sel = false_
+        if mix:
+            # leaf-B parameter set + mix factor (blended below with the
+            # level-0 coin)
+            fac = zero
+            al2_r = al2_g = al2_b = fuzz2 = ir2 = zero
+            em2_r = em2_g = em2_b = zero
+            is_lam2 = is_met2 = is_die2 = is_emi2 = is_iso2 = false_
+        for i in range(n_spheres):
+            base = _SPHERES + i * stride
+            sel = best == i
+
+            def pick(cur, v, sel=sel):
+                return jnp.where(sel, v, cur)
+
+            scx = pick(scx, f(base + 0))
+            scy = pick(scy, f(base + 1))
+            scz = pick(scz, f(base + 2))
+            inv_r = pick(inv_r, 1.0 / f(base + 3))
+            al_r = pick(al_r, f(base + 4))
+            al_g = pick(al_g, f(base + 5))
+            al_b = pick(al_b, f(base + 6))
+            fuzz = pick(fuzz, f(base + 7))
+            ir = pick(ir, f(base + 8))
+            em_r = pick(em_r, f(base + 9))
+            em_g = pick(em_g, f(base + 10))
+            em_b = pick(em_b, f(base + 11))
+            if i >= n_solid:
+                vol_sel = vol_sel | sel
+            k = sphere_kinds[i]  # static: int | (kind_a, kind_b)
+            k_a, k_b = k if isinstance(k, tuple) else (k, k)
+            if k_a == M.LAMBERTIAN:
+                is_lam = is_lam | sel
+            elif k_a == M.METAL:
+                is_met = is_met | sel
+            elif k_a == M.DIELECTRIC:
+                is_die = is_die | sel
+            elif k_a == M.EMISSION:
+                is_emi = is_emi | sel
+            elif k_a == M.ISOTROPIC:
+                is_iso = is_iso | sel
+            if mix:
+                fac = pick(fac, f(base + 12))
+                al2_r = pick(al2_r, f(base + 13))
+                al2_g = pick(al2_g, f(base + 14))
+                al2_b = pick(al2_b, f(base + 15))
+                fuzz2 = pick(fuzz2, f(base + 16))
+                ir2 = pick(ir2, f(base + 17))
+                em2_r = pick(em2_r, f(base + 18))
+                em2_g = pick(em2_g, f(base + 19))
+                em2_b = pick(em2_b, f(base + 20))
+                if k_b == M.LAMBERTIAN:
+                    is_lam2 = is_lam2 | sel
+                elif k_b == M.METAL:
+                    is_met2 = is_met2 | sel
+                elif k_b == M.DIELECTRIC:
+                    is_die2 = is_die2 | sel
+                elif k_b == M.EMISSION:
+                    is_emi2 = is_emi2 | sel
+                elif k_b == M.ISOTROPIC:
+                    is_iso2 = is_iso2 | sel
+
+        # hit point + outward normal (safe t on miss lanes: an inf primal
+        # in a masked branch still poisons the vjp)
+        safe_t = jnp.where(hit, t_best, 1.0)
+        ptx = ox + safe_t * dx
+        pty = oy + safe_t * dy
+        ptz = oz + safe_t * dz
+        nx = (ptx - scx) * inv_r
+        ny = (pty - scy) * inv_r
+        nz = (ptz - scz) * inv_r
+        if n_vol:
+            # volume dummy normal (1,0,0) (lib/volume.rs:66-72;
+            # ops/intersect.py sphere_normal)
+            nx = jnp.where(vol_sel, 1.0, nx)
+            ny = jnp.where(vol_sel, 0.0, ny)
+            nz = jnp.where(vol_sel, 0.0, nz)
+
+        if mix:
+            # level-0 mix coin: u >= factor picks the FIRST leaf
+            # (lib/materials.rs:151; ops/shade.py resolve_mix).  Non-mix
+            # spheres bake leaf A == leaf B and factor == 0, making the
+            # blend the identity for them.
+            pick_a = u_mix >= fac
+            al_r = jnp.where(pick_a, al_r, al2_r)
+            al_g = jnp.where(pick_a, al_g, al2_g)
+            al_b = jnp.where(pick_a, al_b, al2_b)
+            fuzz = jnp.where(pick_a, fuzz, fuzz2)
+            ir = jnp.where(pick_a, ir, ir2)
+            em_r = jnp.where(pick_a, em_r, em2_r)
+            em_g = jnp.where(pick_a, em_g, em2_g)
+            em_b = jnp.where(pick_a, em_b, em2_b)
+            is_lam = (pick_a & is_lam) | (~pick_a & is_lam2)
+            is_met = (pick_a & is_met) | (~pick_a & is_met2)
+            is_die = (pick_a & is_die) | (~pick_a & is_die2)
+            is_emi = (pick_a & is_emi) | (~pick_a & is_emi2)
+            is_iso = (pick_a & is_iso) | (~pick_a & is_iso2)
+
+        return shade(b, a, hit, ptx, pty, ptz, nx, ny, nz,
+                     al_r, al_g, al_b, fuzz, ir, em_r, em_g, em_b,
+                     is_lam, is_met, is_die, is_emi, is_iso,
+                     alive, u1, u2, u_coin, u_r,
+                     ox, oy, oz, dx, dy, dz,
+                     thr_r, thr_g, thr_b, rad_r, rad_g, rad_b, miss)
+
+    def bounce_cond(state):
+        b, *_, alive_f = state
+        return (b < max_depth) & (jnp.max(alive_f) > 0.0)
+
+    miss0 = (zero,) * 6 if skymap else ()
+    state = (jnp.int32(0), ox, oy, oz, dx, dy, dz,
+             one, one, one, zero, zero, zero, *miss0, one)
+    if unrolled:
+        for _ in range(max_depth):
+            state = bounce_body(state)
+    else:
+        # early-out: a block whose rays all escaped or terminated stops
+        state = jax.lax.while_loop(bounce_cond, bounce_body, state)
+    if skymap:
+        return tuple(state[10:19])
+    return state[10], state[11], state[12]
+
+
+# ------------------------------------------------------------------ kernels
+
+def _block_keys(iparams_ref, ray_ref):
+    """Seed words + ray ids of one block -> (k0, k1, ray_u32)."""
+    ray_u32 = ray_ref[...].astype(jnp.uint32)
+    k0 = jnp.zeros_like(ray_u32) + iparams_ref[0].astype(jnp.uint32)
+    k1 = jnp.zeros_like(ray_u32) + iparams_ref[1].astype(jnp.uint32)
+    return k0, k1, ray_u32
+
+
+def _store_row(ref, vals):
+    """Write scalars into the program's (1, k_pad) output row."""
+    for j, v in enumerate(vals):
+        ref[0, j] = v
+
+
+def _make_kernel(cfg):
+    """Forward kernel: early-out while_loop chain, one output per radiance
+    (or miss-record) register."""
+
+    def kernel(iparams_ref, fp_ref, ray_ref, px_ref, py_ref, *outs):
+        k0, k1, ray_u32 = _block_keys(iparams_ref, ray_ref)
+        vals = _radiance_math(lambda i: fp_ref[i], k0, k1, ray_u32,
+                              px_ref[...], py_ref[...], unrolled=False,
+                              **cfg)
         for ref, val in zip(outs, vals):
             ref[...] = val
 
     return kernel
 
 
-def _make_grad_kernel(n_spheres, max_depth, sphere_kinds, bg_kind, clay,
-                      k_params, tri_kinds=(), tri_tb=0, mix=False,
-                      n_vol=0):
-    """Fused forward-replay + backward kernel.
+def _make_grad_kernel(cfg, k):
+    """Forward-replay + backward kernel.
 
     ``jax.vjp`` over :func:`_radiance_math` traces reverse-mode AD INTO the
-    kernel: the unrolled bounce chain's residuals live in VMEM/registers for
-    the whole fwd+bwd of a ray block — the whole point; the XLA grad path
-    round-trips every residual through HBM.  Parameter cotangents accumulate
-    across grid steps into one (1, K) block (TPU grid steps run sequentially
-    on the core, so += is race-free).  With triangles, the C/S constant
-    matrices are extra diff inputs: their cotangents flow back through
-    _pack_tri into material/geometry pytree leaves.
-    """
+    kernel: the unrolled chain's residuals stay on chip for the whole
+    forward and backward of a ray block.  The scene constants enter as k
+    scalars; their cotangents are block sums, written as this program's
+    partial row (summed across programs by XLA after the call)."""
 
-    # skymap configs carry NINE primal outputs (rgb radiance + the 6 miss-
-    # record registers consumed by the driver's differentiable equirect
-    # gather, _env_finish) — their cotangents all enter the fused vjp
-    n_cts = 9 if bg_kind == B.SKYMAP else 3
+    def kernel(iparams_ref, fp_ref, ray_ref, px_ref, py_ref, *refs):
+        *ct_refs, dfp_ref = refs
+        k0, k1, ray_u32 = _block_keys(iparams_ref, ray_ref)
+        px, py = px_ref[...], py_ref[...]
+        cts = tuple(r[...] for r in ct_refs)
 
-    def kernel(iparams, *refs):
-        ds2_ref = tri_s2_ref = None
-        refs = list(refs)
-        fp_ref = refs.pop(0)
-        if tri_tb:
-            tri_c_ref = refs.pop(0)
-            tri_s_ref = refs.pop(0)
-            if mix:
-                tri_s2_ref = refs.pop(0)
-        ray_id_ref = refs.pop(0)
-        px_ref = refs.pop(0)
-        py_ref = refs.pop(0)
-        g_refs = [refs.pop(0) for _ in range(n_cts)]
-        dfp_ref = refs.pop(0)
-        if tri_tb:
-            dc_ref = refs.pop(0)
-            ds_ref = refs.pop(0)
-            if mix:
-                ds2_ref = refs.pop(0)
-        assert not refs
-        seed_hi = iparams[0].astype(jnp.uint32)
-        seed_lo = iparams[1].astype(jnp.uint32)
-        ray_id = ray_id_ref[...]
-        ray_u32 = ray_id.astype(jnp.uint32)
-        k0 = jnp.full(ray_id.shape, 0, jnp.uint32) + seed_hi
-        k1 = jnp.full(ray_id.shape, 0, jnp.uint32) + seed_lo
-        px = px_ref[...]
-        py = py_ref[...]
-        cts = tuple(g[...] for g in g_refs)
+        def block_radiance(*scalars):
+            return _radiance_math(scalars.__getitem__, k0, k1, ray_u32,
+                                  px, py, unrolled=True, **cfg)
 
-        if tri_tb and mix:
-            def block_radiance(fp_row, c_arr, s_arr, s2_arr):
-                return _radiance_math(
-                    lambda i: fp_row[0, i], k0, k1, ray_u32, px, py,
-                    n_spheres=n_spheres, max_depth=max_depth,
-                    sphere_kinds=sphere_kinds, bg_kind=bg_kind, clay=clay,
-                    unrolled=True, tri=(c_arr, s_arr, s2_arr, tri_tb),
-                    tri_kinds=tri_kinds, mix=True, n_vol=n_vol,
-                )
-
-            _, vjp_fn = jax.vjp(block_radiance, fp_ref[...], tri_c_ref[...],
-                                tri_s_ref[...], tri_s2_ref[...])
-            dfp, dc, ds, ds2 = vjp_fn(cts)
-        elif tri_tb:
-            def block_radiance(fp_row, c_arr, s_arr):
-                return _radiance_math(
-                    lambda i: fp_row[0, i], k0, k1, ray_u32, px, py,
-                    n_spheres=n_spheres, max_depth=max_depth,
-                    sphere_kinds=sphere_kinds, bg_kind=bg_kind, clay=clay,
-                    unrolled=True, tri=(c_arr, s_arr, None, tri_tb),
-                    tri_kinds=tri_kinds, n_vol=n_vol,
-                )
-
-            _, vjp_fn = jax.vjp(block_radiance, fp_ref[...], tri_c_ref[...],
-                                tri_s_ref[...])
-            dfp, dc, ds = vjp_fn(cts)
-        else:
-            def block_radiance(fp_row):
-                return _radiance_math(
-                    lambda i: fp_row[0, i], k0, k1, ray_u32, px, py,
-                    n_spheres=n_spheres, max_depth=max_depth,
-                    sphere_kinds=sphere_kinds, bg_kind=bg_kind, clay=clay,
-                    unrolled=True, mix=mix, n_vol=n_vol,
-                )
-
-            _, vjp_fn = jax.vjp(block_radiance, fp_ref[...])
-            (dfp,) = vjp_fn(cts)
-
-        @pl.when(pl.program_id(0) == 0)
-        def _init():
-            dfp_ref[...] = jnp.zeros_like(dfp_ref)
-            if tri_tb:
-                dc_ref[...] = jnp.zeros_like(dc_ref)
-                ds_ref[...] = jnp.zeros_like(ds_ref)
-                if mix:
-                    ds2_ref[...] = jnp.zeros_like(ds2_ref)
-
-        dfp_ref[...] += dfp
-        if tri_tb:
-            dc_ref[...] += dc
-            ds_ref[...] += ds
-            if mix:
-                ds2_ref[...] += ds2
+        _, vjp_fn = jax.vjp(block_radiance, *(fp_ref[i] for i in range(k)))
+        _store_row(dfp_ref, vjp_fn(cts))
 
     return kernel
 
 
-# ------------------------------------------------------------------ driver
+def _make_mse_kernel(cfg, k, spp, spp_pad, clamp):
+    """Fused loss+grad kernel.  Extra inputs per block: the block's
+    block/spp_pad pixels' target rgb and weight (1/(3*H*W) for real
+    pixels, 0 for padding — the exact jnp.mean((img-target)**2)
+    normalization).  Outputs: this program's partial loss and partial
+    parameter cotangents.
+
+    Pixel means: ray order is pixel*spp_pad + sample, so one pixel's
+    samples are CONTIGUOUS rays of the block.  They are averaged with a
+    reshape to (pixels, spp_pad) and a masked sum — no matmul, so no
+    reduced-precision dot can creep in.  Lanes [spp, spp_pad) of each group
+    trace throwaway rays the mask ignores."""
+
+    def kernel(iparams_ref, fp_ref, ray_ref, px_ref, py_ref,
+               tr_ref, tg_ref, tb_ref, wt_ref, loss_ref, dfp_ref):
+        k0, k1, ray_u32 = _block_keys(iparams_ref, ray_ref)
+        px, py = px_ref[...], py_ref[...]
+        tgt = (tr_ref[...], tg_ref[...], tb_ref[...])
+        wt = wt_ref[...]
+        n_pix = wt.shape[0]
+        real = (jax.lax.broadcasted_iota(jnp.int32, (n_pix, spp_pad), 1)
+                < spp)
+
+        def block_loss(*scalars):
+            vals = _radiance_math(scalars.__getitem__, k0, k1, ray_u32,
+                                  px, py, unrolled=True, **cfg)
+            loss = jnp.float32(0.0)
+            for rad, t in zip(vals, tgt):
+                c = jnp.clip(rad, 0.0, clamp).reshape(n_pix, spp_pad)
+                m = jnp.sum(jnp.where(real, c, 0.0), axis=1) * (1.0 / spp)
+                d = m - t
+                loss = loss + jnp.sum(wt * d * d)
+            return loss
+
+        loss, vjp_fn = jax.vjp(block_loss, *(fp_ref[i] for i in range(k)))
+        loss_ref[0] = loss
+        _store_row(dfp_ref, vjp_fn(jnp.float32(1.0)))
+
+    return kernel
+
+
+def _pow2(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
+
+
+class _Call:
+    """Shared plumbing of one static kernel configuration: the padded
+    parameter width, block specs and the pallas_call wrapper."""
+
+    def __init__(self, cfg, n_pad, interpret, block, num_warps):
+        self.cfg = dict(cfg)
+        self.n_pad = n_pad
+        self.grid = n_pad // block
+        self.interpret = interpret
+        self.params = plt.CompilerParams(num_warps=num_warps, num_stages=1)
+        self.k = int(_SPHERES + cfg["n_spheres"]
+                     * _sphere_stride(cfg["mix"], cfg["n_vol"] > 0))
+        self.k_pad = _pow2(self.k)
+        self.rays = pl.BlockSpec((block,), lambda i: (i,))
+        self.row = pl.BlockSpec((1, self.k_pad), lambda i: (i, 0))
+        self.head = [pl.BlockSpec((2,), lambda i: (0,)),
+                     pl.BlockSpec((self.k_pad,), lambda i: (0,)),
+                     self.rays, self.rays, self.rays]
+
+    def pad(self, fparams):
+        padded = jnp.zeros((self.k_pad,), jnp.float32).at[:self.k].set(
+            fparams)
+        if self.interpret:
+            # The interpreter runs the kernel body as XLA code, which could
+            # fuse the scene-constant arithmetic into it and round it
+            # differently in each surrounding program; materialize it.
+            padded = jax.lax.optimization_barrier(padded)
+        return padded
+
+    def __call__(self, kernel, name, in_specs, out_specs, out_shape, *args):
+        return pl.pallas_call(
+            kernel, out_shape=out_shape, grid=(self.grid,),
+            in_specs=in_specs, out_specs=out_specs,
+            backend="triton", compiler_params=self.params,
+            interpret=self.interpret, name=name,
+        )(*args)
+
+    def forward(self, iparams, fparams, ray_ids, px, py):
+        n_out = 9 if self.cfg["bg_kind"] == B.SKYMAP else 3
+        out = jax.ShapeDtypeStruct((self.n_pad,), jnp.float32)
+        return tuple(self(
+            _make_kernel(self.cfg), "rtrt_sphere_fwd", self.head,
+            [self.rays] * n_out, [out] * n_out,
+            iparams, self.pad(fparams), ray_ids, px, py))
+
+    def partials(self, rows):
+        """(grid, k_pad) partial rows -> (k,) cotangent, summed by XLA in
+        a fixed order."""
+        return jnp.sum(rows[:, :self.k], axis=0)
+
 
 @functools.lru_cache(maxsize=64)
-def _radiance_cvjp(n_spheres, max_depth, sphere_kinds, bg_kind, clay,
-                   rows, interpret, n_tris=0, tri_tb=0, tri_kinds=(),
-                   mix=False, n_vol=0):
-    """custom_vjp-wrapped block radiance for one static configuration.
+def _radiance_cvjp(cfg, n_pad, interpret, block, num_warps,
+                   grad_block, grad_warps):
+    """custom_vjp-wrapped block radiance for one static configuration
+    (``cfg``: a sorted tuple of _radiance_math keyword arguments).
 
-    Primal: the early-out forward kernel.  Backward: the fused
-    forward-replay + vjp kernel (_make_grad_kernel) — the entire
-    differentiable step never spills the wavefront to HBM.  Cached per
-    static config so jit re-traces reuse the same custom_vjp instance.
-    With triangles (n_tris > 0) the signature gains the (tri_c, tri_s[,
-    tri_s2]) VMEM constant matrices as differentiable operands.
+    Primal: the early-out forward kernel.  Backward: the forward-replay +
+    vjp kernel (_make_grad_kernel).  Cached per static config so jit
+    re-traces reuse the same custom_vjp instance.  SKYMAP configs return
+    NINE arrays (radiance rgb + miss direction + miss throughput); their
+    cotangents all enter the grad kernel."""
+    cfg = dict(cfg)
+    fwd = _Call(cfg, n_pad, interpret, block, num_warps)
+    bwd = _Call(cfg, n_pad, interpret, grad_block, grad_warps)
+    n_out = 9 if cfg["bg_kind"] == B.SKYMAP else 3
 
-    SKYMAP configs return NINE blocks (radiance rgb + miss direction +
-    miss throughput); the driver's _env_finish adds the equirect gather
-    OUTSIDE the kernel, and its cotangents (through-the-sky throughput
-    terms) flow back into the fused vjp — HDRI scenes differentiate at
-    full Pallas speed.
-    """
-    shape2d = (rows, BLOCK_COLS)
-    grid = rows // BLOCK_ROWS
-    block = pl.BlockSpec(
-        (BLOCK_ROWS, BLOCK_COLS), lambda i, *_: (i, 0),
-        memory_space=pltpu.VMEM,
-    )
-    out = jax.ShapeDtypeStruct(shape2d, jnp.float32)
-    n_out = 9 if bg_kind == B.SKYMAP else 3
+    def run_grad(iparams, fparams, ray_ids, px, py, cts):
+        rows = bwd(
+            _make_grad_kernel(bwd.cfg, bwd.k), "rtrt_sphere_grad",
+            bwd.head + [bwd.rays] * n_out, bwd.row,
+            jax.ShapeDtypeStruct((bwd.grid, bwd.k_pad), jnp.float32),
+            iparams, bwd.pad(fparams), ray_ids, px, py, *cts)
+        return bwd.partials(rows)
 
-    t_pad = -(-n_tris // tri_tb) * tri_tb if n_tris else 0
-    if n_tris:
-        tri_c_block = pl.BlockSpec((16, 4 * t_pad), lambda i, *_: (0, 0),
-                                   memory_space=pltpu.VMEM)
-        tri_s_block = pl.BlockSpec((16, t_pad), lambda i, *_: (0, 0),
-                                   memory_space=pltpu.VMEM)
-        tri_in_specs = [tri_c_block, tri_s_block]
-        if mix:
-            tri_in_specs.append(tri_s_block)  # S2: same shape as S
-    else:
-        tri_in_specs = []
+    @jax.custom_vjp
+    def radiance(fparams, iparams, ray_ids, px, py):
+        return fwd.forward(iparams, fparams, ray_ids, px, py)
 
-    fwd_kernel = _make_kernel(n_spheres, max_depth, sphere_kinds, bg_kind,
-                              clay, tri_kinds, tri_tb, mix, n_vol)
-    fwd_grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(grid,),
-        in_specs=tri_in_specs + [block, block, block],
-        out_specs=[block] * n_out,
-    )
+    def radiance_fwd(fparams, iparams, ray_ids, px, py):
+        primal = fwd.forward(iparams, fparams, ray_ids, px, py)
+        return primal, (fparams, iparams, ray_ids, px, py)
 
-    def run_forward(iparams, fparams, tri_ops, ray_ids, px, py):
-        return tuple(pl.pallas_call(
-            fwd_kernel,
-            grid_spec=fwd_grid_spec,
-            out_shape=[out] * n_out,
-            interpret=interpret,
-        )(iparams, fparams, *tri_ops, ray_ids, px, py))
-
-    k = int(_SPHERES + n_spheres * _sphere_stride(mix, n_vol > 0))
-    k_pad = -(-k // 128) * 128
-    grad_kernel = _make_grad_kernel(n_spheres, max_depth, sphere_kinds,
-                                    bg_kind, clay, k_pad, tri_kinds, tri_tb,
-                                    mix, n_vol)
-    param_block = pl.BlockSpec((1, k_pad), lambda i, *_: (0, 0),
-                               memory_space=pltpu.VMEM)
-    grad_grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(grid,),
-        in_specs=[param_block] + tri_in_specs
-        + [block] * (3 + n_out),
-        out_specs=[param_block] + tri_in_specs,
-    )
-
-    def run_grad(iparams, fparams, tri_ops, ray_ids, px, py, cts):
-        fp_row = jnp.zeros((1, k_pad), jnp.float32).at[0, :k].set(fparams)
-        grad_out = [jax.ShapeDtypeStruct((1, k_pad), jnp.float32)]
-        if n_tris:
-            grad_out += [jax.ShapeDtypeStruct((16, 4 * t_pad), jnp.float32),
-                         jax.ShapeDtypeStruct((16, t_pad), jnp.float32)]
-            if mix:
-                grad_out += [jax.ShapeDtypeStruct((16, t_pad), jnp.float32)]
-        res = pl.pallas_call(
-            grad_kernel,
-            grid_spec=grad_grid_spec,
-            out_shape=grad_out,
-            interpret=interpret,
-        )(iparams, fp_row, *tri_ops, ray_ids, px, py, *cts)
-        dfp = res[0][0, :k]
-        return (dfp, *res[1:])
-
-    f0 = jax.dtypes.float0
-
-    if n_tris and mix:
-        @jax.custom_vjp
-        def radiance(fparams, tri_c, tri_s, tri_s2, iparams, ray_ids,
-                     px, py):
-            return run_forward(iparams, fparams, (tri_c, tri_s, tri_s2),
-                               ray_ids, px, py)
-
-        def radiance_fwd(fparams, tri_c, tri_s, tri_s2, iparams, ray_ids,
-                         px, py):
-            primal = run_forward(iparams, fparams, (tri_c, tri_s, tri_s2),
-                                 ray_ids, px, py)
-            return primal, (fparams, tri_c, tri_s, tri_s2, iparams,
-                            ray_ids, px, py)
-
-        def radiance_bwd(res, cts):
-            fparams, tri_c, tri_s, tri_s2, iparams, ray_ids, px, py = res
-            dfp, dc, ds, ds2 = run_grad(
-                iparams, fparams, (tri_c, tri_s, tri_s2),
-                ray_ids, px, py, tuple(cts))
-            return (dfp, dc, ds, ds2,
-                    np.zeros(iparams.shape, f0),
-                    np.zeros(ray_ids.shape, f0),
-                    jnp.zeros_like(px), jnp.zeros_like(py))
-    elif n_tris:
-        @jax.custom_vjp
-        def radiance(fparams, tri_c, tri_s, iparams, ray_ids, px, py):
-            return run_forward(iparams, fparams, (tri_c, tri_s),
-                               ray_ids, px, py)
-
-        def radiance_fwd(fparams, tri_c, tri_s, iparams, ray_ids, px, py):
-            primal = run_forward(iparams, fparams, (tri_c, tri_s),
-                                 ray_ids, px, py)
-            return primal, (fparams, tri_c, tri_s, iparams, ray_ids, px, py)
-
-        def radiance_bwd(res, cts):
-            fparams, tri_c, tri_s, iparams, ray_ids, px, py = res
-            dfp, dc, ds = run_grad(iparams, fparams, (tri_c, tri_s),
-                                   ray_ids, px, py, tuple(cts))
-            return (dfp, dc, ds,
-                    np.zeros(iparams.shape, f0),
-                    np.zeros(ray_ids.shape, f0),
-                    jnp.zeros_like(px), jnp.zeros_like(py))
-    else:
-        @jax.custom_vjp
-        def radiance(fparams, iparams, ray_ids, px, py):
-            return run_forward(iparams, fparams, (), ray_ids, px, py)
-
-        def radiance_fwd(fparams, iparams, ray_ids, px, py):
-            primal = run_forward(iparams, fparams, (), ray_ids, px, py)
-            return primal, (fparams, iparams, ray_ids, px, py)
-
-        def radiance_bwd(res, cts):
-            fparams, iparams, ray_ids, px, py = res
-            dfp, = run_grad(iparams, fparams, (), ray_ids, px, py,
-                            tuple(cts))
-            return (dfp,
-                    np.zeros(iparams.shape, f0),
-                    np.zeros(ray_ids.shape, f0),
-                    jnp.zeros_like(px), jnp.zeros_like(py))
+    def radiance_bwd(res, cts):
+        fparams, iparams, ray_ids, px, py = res
+        f0 = jax.dtypes.float0
+        return (run_grad(iparams, fparams, ray_ids, px, py, tuple(cts)),
+                np.zeros(iparams.shape, f0), np.zeros(ray_ids.shape, f0),
+                jnp.zeros_like(px), jnp.zeros_like(py))
 
     radiance.defvjp(radiance_fwd, radiance_bwd)
     return radiance
 
 
-# ------------------------------------------------ fused render->MSE->grad
-#
-# The production fit step is grad-of-MSE.  The generic custom_vjp above
-# costs TWO kernel passes per step: the primal forward (to produce the
-# image the MSE cotangent 2*(img - target) needs) and the fused
-# forward-replay+vjp backward.  But the backward REPLAYS the forward
-# anyway — so when the loss is MSE, fold the loss into the kernel: one
-# pass renders the block, clamps, averages each pixel's spp samples (a
-# lane-grouping matmul on the MXU), computes the squared-error loss
-# contribution, and lets jax.vjp of THAT produce the parameter cotangents
-# directly.  value_and_grad of a fit step = ONE kernel launch (measured
-# ~2.4x the two-pass step on benchmark.json 512x512 spp8 depth6, v5e).
-# Same trick as fused cross-entropy in LLM training stacks.
-
-def _make_mse_kernel(n_spheres, max_depth, sphere_kinds, bg_kind, clay,
-                     spp, clamp, tri_kinds=(), tri_tb=0, mix=False,
-                     n_vol=0, spp_pad=None):
-    """Fused loss+grad kernel.  Extra inputs per ray block: the per-ray
-    REPLICATED target rgb (each pixel's target copied across its lane
-    group) and a per-lane weight (1/(3*H*W*spp_pad) for real-pixel lanes,
-    0 for padding — the exact jnp.mean((img-target)**2) normalization).
-    Outputs: the accumulated scalar loss + parameter cotangents.
-
-    Pixel means: ray order is pixel*spp + sample, so one pixel's samples
-    are CONTIGUOUS lanes.  When spp does not divide BLOCK_COLS the lane
-    group is padded to ``spp_pad`` = the next power of two (a divisor of
-    256): lanes [spp, spp_pad) of each group trace throwaway rays whose
-    radiance the projector ignores.  The averaging projector
-    A[l, m] = (l//spp_pad == m//spp_pad) * (l%spp_pad < spp) / spp
-    replicates each pixel's REAL-sample mean onto its whole group with
-    one (8,256)x(256,256) MXU matmul per channel, so
-    loss = sum(wt * (rad@A - target)^2) counts each pixel exactly once
-    (group weight sums to 1/(3*H*W)).  This is what admits the
-    reference's default spp=5 (lib/core/scene.rs:42-65) to the fused
-    kernel (VERDICT r4 missing #3).
-    """
-    assert bg_kind in (B.UNIFORM, B.GRADIENT), "fused MSE excludes skymap"
-    if spp_pad is None:
-        spp_pad = spp
-    assert BLOCK_COLS % spp_pad == 0 and spp <= spp_pad
-
-    def kernel(iparams, *refs):
-        refs = list(refs)
-        fp_ref = refs.pop(0)
-        tri_refs = []
-        if tri_tb:
-            tri_refs = [refs.pop(0), refs.pop(0)]
-            if mix:
-                tri_refs.append(refs.pop(0))
-        avg_ref = refs.pop(0)
-        ray_id_ref = refs.pop(0)
-        px_ref = refs.pop(0)
-        py_ref = refs.pop(0)
-        tgt_refs = [refs.pop(0) for _ in range(3)]
-        wt_ref = refs.pop(0)
-        loss_ref = refs.pop(0)
-        dfp_ref = refs.pop(0)
-        dtri_refs = [refs.pop(0) for _ in range(len(tri_refs))]
-        assert not refs
-
-        seed_hi = iparams[0].astype(jnp.uint32)
-        seed_lo = iparams[1].astype(jnp.uint32)
-        ray_id = ray_id_ref[...]
-        ray_u32 = ray_id.astype(jnp.uint32)
-        k0 = jnp.full(ray_id.shape, 0, jnp.uint32) + seed_hi
-        k1 = jnp.full(ray_id.shape, 0, jnp.uint32) + seed_lo
-        px = px_ref[...]
-        py = py_ref[...]
-        tgt = tuple(t[...] for t in tgt_refs)
-        wt = wt_ref[...]
-        # the averaging projector rides VMEM as an input (int division on
-        # a 256x256 iota per grid step is pure VPU waste in-kernel)
-        avg = avg_ref[...]
-
-        def block_loss(fp_row, *tris):
-            tri = None
-            if tri_tb:
-                tri = (tris[0], tris[1], tris[2] if mix else None, tri_tb)
-            vals = _radiance_math(
-                lambda i: fp_row[0, i], k0, k1, ray_u32, px, py,
-                n_spheres=n_spheres, max_depth=max_depth,
-                sphere_kinds=sphere_kinds, bg_kind=bg_kind, clay=clay,
-                unrolled=True, tri=tri, tri_kinds=tri_kinds, mix=mix,
-                n_vol=n_vol,
-            )
-            loss = jnp.float32(0.0)
-            for rad, t in zip(vals, tgt):
-                c = jnp.clip(rad, 0.0, clamp)
-                m = jax.lax.dot_general(
-                    c, avg, (((1,), (0,)), ((), ())),
-                    precision=jax.lax.Precision.HIGHEST,
-                    preferred_element_type=jnp.float32)
-                d = m - t
-                loss = loss + jnp.sum(wt * d * d)
-            return loss
-
-        primal, vjp_fn = jax.vjp(block_loss, fp_ref[...],
-                                 *(r[...] for r in tri_refs))
-        grads = vjp_fn(jnp.float32(1.0))
-
-        @pl.when(pl.program_id(0) == 0)
-        def _init():
-            loss_ref[...] = jnp.zeros_like(loss_ref)
-            dfp_ref[...] = jnp.zeros_like(dfp_ref)
-            for r in dtri_refs:
-                r[...] = jnp.zeros_like(r)
-
-        # scalar loss accumulates in lane 0 of a (1, 128) block (Mosaic
-        # cannot store scalars to VMEM; this is a vector masked add)
-        lane0 = jax.lax.broadcasted_iota(jnp.int32, (1, 128), 1) == 0
-        loss_ref[...] += jnp.where(lane0, primal, 0.0)
-        dfp_ref[...] += grads[0]
-        for r, g in zip(dtri_refs, grads[1:]):
-            r[...] += g
-
-    return kernel
-
-
 @functools.lru_cache(maxsize=64)
-def _mse_cvjp(n_spheres, max_depth, sphere_kinds, bg_kind, clay, rows,
-              interpret, spp, clamp, n_tris=0, tri_tb=0, tri_kinds=(),
-              mix=False, n_vol=0, spp_pad=None):
+def _mse_cvjp(cfg, n_pad, interpret, spp, spp_pad, clamp, block, num_warps,
+              grad_block, grad_warps):
     """custom_vjp MSE loss for one static configuration.
 
     fwd rule = the FUSED loss+grad kernel (one pass computes the loss AND
     every parameter cotangent; the grads ARE the residuals); bwd = scale by
-    the incoming scalar cotangent.  Plain (no-grad) calls run the ordinary
-    forward kernel + an XLA reduction replicating the same formula.
-    ``spp_pad``: lane-group width (next power-of-two >= spp); lanes
-    [spp, spp_pad) of each pixel group are throwaway pads.
-    """
-    if spp_pad is None:
-        spp_pad = spp
-    shape2d = (rows, BLOCK_COLS)
-    grid = rows // BLOCK_ROWS
-    block = pl.BlockSpec(
-        (BLOCK_ROWS, BLOCK_COLS), lambda i, *_: (i, 0),
-        memory_space=pltpu.VMEM,
-    )
-    out = jax.ShapeDtypeStruct(shape2d, jnp.float32)
-
-    t_pad = -(-n_tris // tri_tb) * tri_tb if n_tris else 0
-    tri_in_specs = []
-    if n_tris:
-        s_block = pl.BlockSpec((16, t_pad), lambda i, *_: (0, 0),
-                               memory_space=pltpu.VMEM)
-        tri_in_specs = [
-            pl.BlockSpec((16, 4 * t_pad), lambda i, *_: (0, 0),
-                         memory_space=pltpu.VMEM),
-            s_block,
-        ]
-        if mix:
-            tri_in_specs.append(s_block)
-    n_tri_ops = len(tri_in_specs)
-
-    # plain forward (for no-grad loss evaluations)
-    fwd_kernel = _make_kernel(n_spheres, max_depth, sphere_kinds, bg_kind,
-                              clay, tri_kinds, tri_tb, mix, n_vol)
-    fwd_grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(grid,),
-        in_specs=tri_in_specs + [block, block, block],
-        out_specs=[block, block, block],
-    )
-
-    k = int(_SPHERES + n_spheres * _sphere_stride(mix, n_vol > 0))
-    k_pad = -(-k // 128) * 128
-    param_block = pl.BlockSpec((1, k_pad), lambda i, *_: (0, 0),
-                               memory_space=pltpu.VMEM)
-    loss_block = pl.BlockSpec((1, 128), lambda i, *_: (0, 0),
-                              memory_space=pltpu.VMEM)
-    mse_kernel = _make_mse_kernel(n_spheres, max_depth, sphere_kinds,
-                                  bg_kind, clay, spp, clamp, tri_kinds,
-                                  tri_tb, mix, n_vol, spp_pad=spp_pad)
-    avg_block = pl.BlockSpec((BLOCK_COLS, BLOCK_COLS), lambda i, *_: (0, 0),
-                             memory_space=pltpu.VMEM)
-    mse_grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(grid,),
-        in_specs=[param_block] + tri_in_specs + [avg_block] + [block] * 7,
-        out_specs=[loss_block, param_block] + tri_in_specs,
-    )
-
-    def run_fused(iparams, fparams, tri_ops, ray_ids, px, py, tgt, wt):
-        gi = jax.lax.broadcasted_iota(jnp.int32,
-                                      (BLOCK_COLS, BLOCK_COLS), 0)
-        gj = jax.lax.broadcasted_iota(jnp.int32,
-                                      (BLOCK_COLS, BLOCK_COLS), 1)
-        # source lane gi contributes only if it is a REAL sample of the
-        # destination lane gj's pixel group (pad lanes' radiance is
-        # ignored); every lane of the group receives the real-sample mean
-        avg = (((gi // spp_pad) == (gj // spp_pad))
-               & (gi % spp_pad < spp)).astype(jnp.float32) / spp
-        fp_row = jnp.zeros((1, k_pad), jnp.float32).at[0, :k].set(fparams)
-        out_shape = [jax.ShapeDtypeStruct((1, 128), jnp.float32),
-                     jax.ShapeDtypeStruct((1, k_pad), jnp.float32)]
-        if n_tris:
-            out_shape += [jax.ShapeDtypeStruct((16, 4 * t_pad), jnp.float32),
-                          jax.ShapeDtypeStruct((16, t_pad), jnp.float32)]
-            if mix:
-                out_shape += [jax.ShapeDtypeStruct((16, t_pad),
-                                                   jnp.float32)]
-        res = pl.pallas_call(
-            mse_kernel,
-            grid_spec=mse_grid_spec,
-            out_shape=out_shape,
-            interpret=interpret,
-        )(iparams, fp_row, *tri_ops, avg, ray_ids, px, py, *tgt, wt)
-        loss = res[0][0, 0]
-        dfp = res[1][0, :k]
-        return loss, (dfp, *res[2:])
+    the incoming scalar cotangent.  Plain (no-grad) calls run the forward
+    kernel + an XLA reduction of the same formula."""
+    cfg = dict(cfg)
+    fwd = _Call(cfg, n_pad, interpret, block, num_warps)
+    mse = _Call(cfg, n_pad, interpret, grad_block, grad_warps)
+    pix = pl.BlockSpec((grad_block // spp_pad,), lambda i: (i,))
 
     def xla_loss(outs, tgt, wt):
         """The kernel's loss formula in XLA, for no-grad evaluations."""
         loss = jnp.float32(0.0)
         for rad, t in zip(outs, tgt):
-            c = jnp.clip(rad, 0.0, clamp)
-            v = c.reshape(rows, BLOCK_COLS // spp_pad, spp_pad)
-            m = v[..., :spp].mean(axis=-1)
-            m = jnp.repeat(m, spp_pad, axis=-1)
+            c = jnp.clip(rad, 0.0, clamp).reshape(-1, spp_pad)
+            m = c[:, :spp].mean(axis=-1)
             loss = loss + jnp.sum(wt * (m - t) ** 2)
         return loss
 
-    n_diff = 1 + n_tri_ops  # fparams [+ tri operands]
-
     @jax.custom_vjp
-    def mse(fparams, *rest):
-        tri_ops = rest[:n_tri_ops]
-        tgt = rest[n_tri_ops:n_tri_ops + 3]
-        wt, iparams, ray_ids, px, py = rest[n_tri_ops + 3:]
-        outs = pl.pallas_call(
-            fwd_kernel,
-            grid_spec=fwd_grid_spec,
-            out_shape=[out, out, out],
-            interpret=interpret,
-        )(iparams, fparams, *tri_ops, ray_ids, px, py)
+    def loss_fn(fparams, tgt, wt, iparams, ray_ids, px, py):
+        outs = fwd.forward(iparams, fparams, ray_ids, px, py)
         return xla_loss(outs, tgt, wt)
 
-    def mse_fwd(fparams, *rest):
-        tri_ops = rest[:n_tri_ops]
-        tgt = rest[n_tri_ops:n_tri_ops + 3]
-        wt, iparams, ray_ids, px, py = rest[n_tri_ops + 3:]
-        loss, grads = run_fused(iparams, fparams, tri_ops, ray_ids, px, py,
-                                tgt, wt)
-        return loss, grads
+    def loss_fwd(fparams, tgt, wt, iparams, ray_ids, px, py):
+        losses, rows = mse(
+            _make_mse_kernel(mse.cfg, mse.k, spp, spp_pad, clamp),
+            "rtrt_sphere_mse", mse.head + [pix] * 4,
+            [pl.BlockSpec((1,), lambda i: (i,)), mse.row],
+            [jax.ShapeDtypeStruct((mse.grid,), jnp.float32),
+             jax.ShapeDtypeStruct((mse.grid, mse.k_pad), jnp.float32)],
+            iparams, mse.pad(fparams), ray_ids, px, py, *tgt, wt)
+        return jnp.sum(losses), mse.partials(rows)
 
-    def mse_bwd(grads, gbar):
+    def loss_bwd(dfp, gbar):
+        # target/weight are constants of the fit (mse_loss_pallas)
         f0 = jax.dtypes.float0
-        dfp, *dtri = grads
-        # target/weight are treated as constants of the fit (documented in
-        # mse_loss_pallas); their cotangents are zero.
-        zeros = [jnp.zeros((rows, BLOCK_COLS), jnp.float32)] * 4
-        return (dfp * gbar, *[d * gbar for d in dtri], *zeros,
-                np.zeros((2,), f0),
-                np.zeros((rows, BLOCK_COLS), f0),
-                jnp.zeros((rows, BLOCK_COLS), jnp.float32),
-                jnp.zeros((rows, BLOCK_COLS), jnp.float32))
+        n_pix = n_pad // spp_pad
+        zeros = jnp.zeros((n_pix,), jnp.float32)
+        return (dfp * gbar, (zeros,) * 3, zeros,
+                np.zeros((2,), f0), np.zeros((n_pad,), f0),
+                jnp.zeros((n_pad,), jnp.float32),
+                jnp.zeros((n_pad,), jnp.float32))
 
-    mse.defvjp(mse_fwd, mse_bwd)
-    return mse
+    loss_fn.defvjp(loss_fwd, loss_bwd)
+    return loss_fn
 
 
-def mse_loss_pallas(scene: Scene, target, width: int,
-                    height: int, iparams, *,
-                    sphere_kinds: tuple | None = None,
-                    tri_kinds: tuple | None = None,
-                    interpret: bool = False):
-    """jnp.mean((render_linear(scene) - target)**2) over the FULL frame
-    with a FUSED loss+gradient kernel: under value_and_grad the whole fit
-    step is one kernel launch (the separate forward render is gone).
-    ``target`` is (H, W, 3) linear radiance and is treated as a CONSTANT of
-    the fit (its cotangent is zero).  Gate: :func:`supports_fused_mse`.
-    """
-    if sphere_kinds is None:
-        sphere_kinds = _sphere_kinds(scene)
-    if tri_kinds is None:
-        tri_kinds = _tri_kinds(scene)
-    spp = scene.settings.samples_per_pixel
-    # lane-group width: the next power of two >= spp (a divisor of
-    # BLOCK_COLS).  Real lanes keep GLOBAL ray ids pixel*spp + s, so the
-    # gradients are bit-identical to the two-pass path; pad lanes trace
-    # throwaway rays the projector + weights ignore.
-    spp_pad = 1 << max(0, (spp - 1).bit_length())
-    n_pixels = width * height
-    pixel_ids = jnp.arange(n_pixels, dtype=jnp.int32)
-    ray_ids, px, py, rows, n_rays = _prep_rays(pixel_ids, spp, width,
-                                               0, spp_pad)
+# ------------------------------------------------------------------ drivers
 
-    mix = bool(scene.materials.has_mix)
-    fparams = _pack_fparams(scene, width, height, mix=mix)
-    n_tris = len(scene.triangles)
-    tri_tb = _tri_sizes(n_tris)[0] if n_tris else 0
-    tri_ops = tuple(_pack_tri(scene, tri_tb, mix=mix)) if n_tris else ()
-
-    # Per-ray replicated target (each pixel's value across its lane group)
-    # + exact-mean weights (pads weigh 0; each group sums to 1/(3*H*W)).
-    # Raster order makes this a pure broadcast+reshape — NEVER a gather: a
-    # 2M-row dynamic gather measured 139 ms on v5e, 10x the whole fused
-    # kernel.
-    t3 = jax.lax.stop_gradient(jnp.asarray(target)).reshape(n_pixels, 3)
-    w_real = jnp.full((n_rays,), 1.0 / (3.0 * n_pixels * spp_pad),
-                      jnp.float32)
-    pad = rows * BLOCK_COLS - n_rays
-
-    def blocks(v):
-        if pad:
-            v = jnp.concatenate([v, jnp.zeros((pad,), jnp.float32)])
-        return v.reshape(rows, BLOCK_COLS)
-
-    def rep(col):
-        return jnp.broadcast_to(col[:, None],
-                                (n_pixels, spp_pad)).reshape(-1)
-
-    tgt = tuple(blocks(rep(t3[:, c])) for c in range(3))
-    wt = blocks(w_real)
-
-    mse = _mse_cvjp(
-        len(scene.spheres), scene.settings.max_ray_depth, sphere_kinds,
-        scene.background.kind, scene.settings.mode == MODE_CLAY, rows,
-        interpret, spp, float(scene.settings.clamp_indirect),
-        n_tris=n_tris, tri_tb=tri_tb,
-        tri_kinds=tri_kinds if n_tris else (), mix=mix,
-        n_vol=scene.spheres.num_volumes, spp_pad=spp_pad,
-    )
-    return mse(fparams, *tri_ops, *tgt, wt, iparams, ray_ids, px, py)
-
-
-def supports_fused_mse(scene: Scene) -> bool:
-    """Static gate for the fused render->MSE->grad kernel: the brute-kernel
-    envelope minus skymap (the equirect gather cannot run in-kernel), with
-    each pixel's samples contiguous within a lane row.
-
-    ANY spp <= BLOCK_COLS qualifies (r5, VERDICT r4 missing #3): when spp
-    does not divide 256 the lane group pads to the next power of two with
-    zero-weight throwaway lanes (see _make_mse_kernel) — the reference's
-    DEFAULT spp=5 (lib/core/scene.rs:42-65 and scenes/simple.json) runs
-    the fused kernel at 5/8 lane efficiency, still well ahead of the
-    ~2.4x-slower two-pass path.  Pinned by
-    tests/test_dispatch.py::test_fused_mse_spp_gate."""
-    return (
-        supports(scene)
-        and scene.background.kind in (B.UNIFORM, B.GRADIENT)
-        and scene.settings.samples_per_pixel <= BLOCK_COLS
-    )
+def _static_cfg(scene: Scene, sphere_kinds):
+    """Hashable static kernel configuration of a (concrete) scene."""
+    return tuple(sorted(dict(
+        n_spheres=len(scene.spheres),
+        max_depth=scene.settings.max_ray_depth,
+        sphere_kinds=sphere_kinds,
+        bg_kind=scene.background.kind,
+        clay=scene.settings.mode == MODE_CLAY,
+        mix=bool(scene.materials.has_mix),
+        n_vol=scene.spheres.num_volumes,
+    ).items()))
 
 
 def _env_finish(scene: Scene, outs, n_rays: int):
     """Combine kernel outputs with the batched equirect lookup ->
-    (n_rays, 3) radiance.  ``outs`` = 9 (rows, 256) blocks: rgb radiance +
-    miss direction + miss throughput."""
+    (n_rays, 3) radiance.  ``outs`` = 9 arrays: rgb radiance + miss
+    direction + miss throughput."""
     (rad_r, rad_g, rad_b, mdx, mdy, mdz,
-     mt_r, mt_g, mt_b) = (o.reshape(-1)[:n_rays] for o in outs)
+     mt_r, mt_g, mt_b) = (o[:n_rays] for o in outs)
     rad = jnp.stack([rad_r, rad_g, rad_b], axis=-1)
     d = jnp.stack([mdx, mdy, mdz], axis=-1)
     thr = jnp.stack([mt_r, mt_g, mt_b], axis=-1)
@@ -2758,19 +880,12 @@ def _env_finish(scene: Scene, outs, n_rays: int):
     return rad + jnp.where(escaped[:, None], env, 0.0)
 
 
-def _pack_fparams(scene: Scene, width: int, height: int,
-                  with_spheres: bool = True, mix: bool = False,
-                  mesh_vols: bool = False):
+def _pack_fparams(scene: Scene, width: int, height: int, mix: bool = False):
     """Runtime scene constants -> (K,) f32 (traced; no host sync).
 
-    ``with_spheres=False`` packs only the head (camera + background + pixel
-    scale) — the BVH kernel keeps sphere constants in VMEM chunks instead
-    of SMEM.  ``mix`` extends each sphere record to _SPHERE_STRIDE_MIX with
-    the mix factor + second-leaf parameters (leaf A rides the base slots
-    via mix_first, which is the identity for non-mix rows).
-    ``mesh_vols`` (BVH kernel) appends one _MV_STRIDE record per
-    mesh-bounded volume: free-flight density + the delegated material's
-    values and kind one-hots."""
+    ``mix`` extends each sphere record to _SPHERE_STRIDE_MIX with the mix
+    factor + second-leaf parameters (leaf A rides the base slots via
+    mix_first, which is the identity for non-mix rows)."""
     origin, horizontal, vertical, lower_left = scene.camera.ray_origin()
     bg = scene.background
     bg_a = bg.color_a
@@ -2780,26 +895,6 @@ def _pack_fparams(scene: Scene, width: int, height: int,
         bg_a, bg_b,
         jnp.array([1.0 / (width - 1), 1.0 / (height - 1)], jnp.float32),
     ])
-    if mesh_vols and scene.num_mesh_volumes:
-        mats = scene.materials
-        mid = scene.mesh_volumes.material
-        kind = mats.kind[mid]
-        f32 = jnp.float32
-        mv = jnp.concatenate([
-            scene.mesh_volumes.neg_inv_density[:, None],
-            mats.albedo[mid],
-            mats.fuzz[mid][:, None],
-            mats.ir[mid][:, None],
-            mats.emission[mid],
-            (kind == M.LAMBERTIAN).astype(f32)[:, None],
-            (kind == M.METAL).astype(f32)[:, None],
-            (kind == M.DIELECTRIC).astype(f32)[:, None],
-            (kind == M.EMISSION).astype(f32)[:, None],
-            mid.astype(f32)[:, None],
-        ], axis=1).reshape(-1)
-        head = jnp.concatenate([head, mv])
-    if not with_spheres:
-        return head.astype(jnp.float32)
     mats = scene.materials
     mat_id = scene.spheres.material
     mid_a = mats.mix_first[mat_id] if mix else mat_id
@@ -2826,7 +921,7 @@ def _pack_fparams(scene: Scene, width: int, height: int,
     return jnp.concatenate([head, per_sphere]).astype(jnp.float32)
 
 
-def _sphere_kinds(scene: Scene) -> tuple:
+def sphere_kinds(scene: Scene) -> tuple:
     """Per-sphere static material kinds: an int for plain materials, an
     (kind_a, kind_b) pair for single-level mixes (the kernel blends the two
     baked leaves with the bounce's mix coin)."""
@@ -2843,7 +938,7 @@ def _sphere_kinds(scene: Scene) -> tuple:
 
 
 def _flat_kinds(kind_entries) -> set:
-    """Flatten _sphere_kinds entries (ints and (a, b) mix pairs) to a set."""
+    """Flatten sphere_kinds entries (ints and (a, b) mix pairs) to a set."""
     out = set()
     for k in kind_entries:
         if isinstance(k, tuple):
@@ -2853,1158 +948,113 @@ def _flat_kinds(kind_entries) -> set:
     return out
 
 
-def seed_words(seed: int):
-    """Python int seed -> (2,) i32 (hi, lo) key words, the layout of
-    jax.random.key(seed) for the threefry implementation."""
-    return jnp.array(
-        [(seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF], jnp.int32
-    )
-
-
-def _prep_rays(pixel_ids, spp: int, width: int, sample_offset=0,
-               n_samples: int | None = None, block_mult: int = 1):
-    """(pixel, sample) fan-out -> (ray_ids, px, py) as (rows, 256) blocks.
+def _prep_rays(pixel_ids, spp: int, width: int, block: int, sample_offset=0,
+               n_samples: int | None = None):
+    """(pixel, sample) fan-out -> flat (ray_ids, px, py), padded to a
+    multiple of ``block``, plus the real ray count.
 
     ``sample_offset``/``n_samples`` select a slice of each pixel's sample
     range (spp sharding: parallel/distributed.py); ray ids stay GLOBAL
     (pixel * spp + global sample index) so any decomposition consumes the
     same uniforms.  ``sample_offset`` may be traced (axis_index inside
-    shard_map).  ``block_mult``: pad the ray count to a multiple of
-    ``block_mult * BLOCK`` (generation-scheduled kernels need ``gens``
-    whole generations per grid step)."""
+    shard_map)."""
     if n_samples is None:
         n_samples = spp
-    p = pixel_ids.shape[0]
-    n_rays = p * n_samples
-
+    n_rays = pixel_ids.shape[0] * n_samples
     sample_ids = sample_offset + jnp.arange(n_samples, dtype=jnp.int32)
-    ray_ids = (
-        pixel_ids[:, None] * spp + sample_ids[None, :]
-    ).reshape(-1)
+    ray_ids = (pixel_ids[:, None] * spp + sample_ids[None, :]).reshape(-1)
     pid = jnp.repeat(pixel_ids, n_samples)
     px = (pid % width).astype(jnp.float32)
     py = (pid // width).astype(jnp.float32)
-
-    pad = (-n_rays) % (BLOCK * block_mult)
+    pad = (-n_rays) % block
     if pad:
         ray_ids = jnp.concatenate([ray_ids, jnp.zeros(pad, jnp.int32)])
         px = jnp.concatenate([px, jnp.zeros(pad, jnp.float32)])
         py = jnp.concatenate([py, jnp.zeros(pad, jnp.float32)])
-    total = n_rays + pad
-    rows = total // BLOCK_COLS
-
-    shape2d = (rows, BLOCK_COLS)
-    return (ray_ids.reshape(shape2d), px.reshape(shape2d),
-            py.reshape(shape2d), rows, n_rays)
+    return ray_ids, px, py, n_rays
 
 
 def pixel_radiance_pallas(scene: Scene, pixel_ids, width: int, height: int,
-                          iparams, *, sphere_kinds: tuple | None = None,
-                          tri_kinds: tuple | None = None,
+                          iparams, *, kinds: tuple | None = None,
                           interpret: bool = False,
-                          sample_offset=0, n_samples: int | None = None):
-    """Mean clamped radiance per pixel -> (P, 3), via the megakernel.
+                          sample_offset=0, n_samples: int | None = None,
+                          block: int = FWD_BLOCK, num_warps: int = FWD_WARPS,
+                          grad_block: int = GRAD_BLOCK,
+                          grad_warps: int = GRAD_WARPS):
+    """Mean clamped radiance per pixel -> (P, 3), via the kernel.
 
-    Drop-in twin of render.pixel_radiance for supported scenes.  ``iparams``
-    is seed_words(seed) — an array, so re-seeding never recompiles.
-    ``sphere_kinds`` (static tuple of per-sphere material-kind ids, from
-    :func:`_sphere_kinds`) and ``tri_kinds`` (static tuple of kinds present
-    among triangle materials) must be supplied when the scene is traced.
-    ``interpret`` runs the kernel in the Pallas interpreter (CPU tests).
-    ``sample_offset``/``n_samples`` restrict to a sample slice (spp
-    sharding) — the returned mean is over that LOCAL slice; the caller
-    psums across the spp mesh axis.
+    Drop-in twin of render.pixel_radiance for supported scenes.
+    ``iparams``: the (2,) int32 seed words — an array, so re-seeding never
+    recompiles.  ``kinds`` (static, from :func:`sphere_kinds`) must be
+    supplied when the scene is traced.  ``interpret`` runs the kernels in
+    the Pallas interpreter (CPU tests).  ``sample_offset``/``n_samples``
+    restrict to a sample slice (spp sharding) — the returned mean is over
+    that LOCAL slice; the caller psums across the spp mesh axis.
+    ``block``/``num_warps`` (forward) and ``grad_*`` (backward) set the
+    launch shape.
+    The caller checks :func:`supports` on the concrete scene
+    (render.resolve_engine): here the scene may be traced.
     """
-    if _env_is_active(scene):
-        raise ValueError(
-            "env_importance_sampling: the Pallas kernels implement only "
-            "the naive escape-lookup estimator; use engine='xla' for the "
-            "one-sample-MIS sampler (render/integrator.py)")
-    if sphere_kinds is None:
-        sphere_kinds = _sphere_kinds(scene)
-    if tri_kinds is None:
-        tri_kinds = _tri_kinds(scene)
+    if kinds is None:
+        kinds = sphere_kinds(scene)
     spp = scene.settings.samples_per_pixel
     p = pixel_ids.shape[0]
-    ray_ids, px, py, rows, n_rays = _prep_rays(pixel_ids, spp, width,
-                                               sample_offset, n_samples)
     n_local = n_samples if n_samples is not None else spp
-
-    mix = bool(scene.materials.has_mix)
-    fparams = _pack_fparams(scene, width, height, mix=mix)
-    n_tris = len(scene.triangles)
-    tri_tb = _tri_sizes(n_tris)[0] if n_tris else 0
-    tri_ops = tuple(_pack_tri(scene, tri_tb, mix=mix)) if n_tris else ()
-
-    # Differentiable (ALL backgrounds): gradients w.r.t. scene parameters
-    # flow through _pack_fparams / _pack_tri (plain jnp) into the
-    # custom_vjp, whose backward is the fused Pallas forward-replay+vjp
-    # kernel.  SKYMAP scenes return 9 blocks (radiance + miss records);
-    # the equirect texel gather happens OUTSIDE the kernel (_env_finish),
-    # is differentiable w.r.t. the sky texels + recorded throughput, and
-    # its cotangents enter the fused vjp through the miss-record outputs.
-    radiance_fn = _radiance_cvjp(
-        len(scene.spheres),
-        scene.settings.max_ray_depth,
-        sphere_kinds,
-        scene.background.kind,
-        scene.settings.mode == MODE_CLAY,
-        rows,
-        interpret,
-        n_tris=n_tris,
-        tri_tb=tri_tb,
-        tri_kinds=tri_kinds if n_tris else (),
-        mix=mix,
-        n_vol=scene.spheres.num_volumes,
-    )
-    outs = radiance_fn(fparams, *tri_ops, iparams, ray_ids, px, py)
+    align = max(block, grad_block)
+    ray_ids, px, py, n_rays = _prep_rays(pixel_ids, spp, width, align,
+                                         sample_offset, n_samples)
+    fparams = _pack_fparams(scene, width, height,
+                            mix=bool(scene.materials.has_mix))
+    radiance_fn = _radiance_cvjp(_static_cfg(scene, kinds),
+                                 ray_ids.shape[0], interpret, block,
+                                 num_warps, grad_block, grad_warps)
+    outs = radiance_fn(fparams, iparams, ray_ids, px, py)
     if scene.background.kind == B.SKYMAP:
         radiance = _env_finish(scene, outs, n_rays)
     else:
-        rad_r, rad_g, rad_b = outs
-        radiance = jnp.stack(
-            [rad_r.reshape(-1), rad_g.reshape(-1), rad_b.reshape(-1)],
-            axis=-1,
-        )[:n_rays]
+        radiance = jnp.stack([o[:n_rays] for o in outs], axis=-1)
     radiance = jnp.clip(radiance, 0.0, scene.settings.clamp_indirect)
     return radiance.reshape(p, n_local, 3).mean(axis=1)
 
 
-# ----------------------------------------------- BVH packet-traversal driver
-
-def _bvh_kinds(scene: Scene) -> tuple:
-    """Static sorted tuple of LEAF material-kind ids reachable from ANY
-    primitive — spheres, triangles, AND mesh-volume delegates — through
-    the FULL mix DAG (transitive closure, not one level: a Lambertian
-    reachable only behind a depth-2 chain still needs its lobe compiled
-    for the nested-mix resolution path)."""
-    kinds = np.asarray(scene.materials.kind)
-    first = np.asarray(scene.materials.mix_first)
-    second = np.asarray(scene.materials.mix_second)
-    roots = set(np.asarray(scene.spheres.material).tolist())
-    roots |= set(np.asarray(scene.triangles.material).tolist())
-    if scene.num_mesh_volumes:
-        roots |= set(np.asarray(scene.mesh_volumes.material).tolist())
-    out, seen, stack = set(), set(), list(roots)
-    while stack:
-        m = int(stack.pop())
-        if m in seen:
-            continue
-        seen.add(m)
-        if kinds[m] == M.MIX:
-            stack += [int(first[m]), int(second[m])]
-        else:
-            out.add(int(kinds[m]))
-    return tuple(sorted(out))
-
-
-def _make_bvh_kernel(max_depth, kinds, bg_kind, clay, k_sph, k_tri,
-                     k_vol=0, n_vol=0, record=False, gens=1, mix=False,
-                     mv_spans=(), debug=None, d_mix=0):
-    """Forward kernel with the chunk-leaf BVH intersect stage.  Node tables
-    ride scalar-prefetch SMEM (scalar cursor reads); chunk constant matrices
-    ride VMEM.  Tree order: solid spheres, volume spheres, triangles.
-    ``record``: additionally write the per-bounce winner-slot record (last
-    output ref; unrolled chain) for the differentiable replay.
-    ``mix``: every present tree carries one extra S2 VMEM matrix (leaf-B
-    shading rows + mix factor) consumed by the leaf-merge blend.
-    ``d_mix`` > 0 (NESTED mixes, r5): one extra (16, m_pad) per-material
-    VMEM table after the chunk operands; the shade stage resolves the
-    winner's mix DAG with d_mix one-hot rounds (_mixn_resolve)."""
-    has_sph = k_sph > 0
-    has_vol = k_vol > 0
-    has_tri = k_tri > 0
-    has_mv = len(mv_spans) > 0
-    nm = 1 if mix else 0
-
-    def kernel(iparams, fparams, *refs):
-        refs = list(refs)
-        sph_nodes = refs[:2] if has_sph else None
-        if has_sph:
-            refs = refs[2:]
-        vol_nodes = refs[:2] if has_vol else None
-        if has_vol:
-            refs = refs[2:]
-        tri_nodes = refs[:2] if has_tri else None
-        if has_tri:
-            refs = refs[2:]
-        sph = vol_ = tri_ = None
-        if has_sph:
-            sph = (sph_nodes[0], sph_nodes[1], k_sph,
-                   *refs[:1 + nm])
-            refs = refs[1 + nm:]
-        if has_vol:
-            vol_ = (vol_nodes[0], vol_nodes[1], k_vol,
-                    *refs[:2 + nm])
-            refs = refs[2 + nm:]
-        if has_tri:
-            tri_ = (tri_nodes[0], tri_nodes[1], k_tri,
-                    *refs[:2 + nm])
-            refs = refs[2 + nm:]
-        mv_ = None
-        if has_mv:
-            mv_ = (refs[0], mv_spans)
-            refs = refs[1:]
-        mixn_tab = None
-        if d_mix:
-            mixn_tab = refs[0][...]
-            refs = refs[1:]
-        ray_id_ref, px_ref, py_ref = refs[:3]
-        outs = refs[3:]
-        rec_ref = None
-        if record:
-            rec_ref = outs[-1]
-            outs = outs[:-1]
-            # skipped/early-exited bounces leave well-defined miss records
-            rec_ref[...] = jnp.full(rec_ref.shape, -1, jnp.int32)
-
-        seed_hi = iparams[0].astype(jnp.uint32)
-        seed_lo = iparams[1].astype(jnp.uint32)
-        ray_id = ray_id_ref[...]
-        ray_u32 = ray_id.astype(jnp.uint32)
-        k0 = jnp.full(ray_id.shape, 0, jnp.uint32) + seed_hi
-        k1 = jnp.full(ray_id.shape, 0, jnp.uint32) + seed_lo
-
-        vals = _radiance_math(
-            lambda i: fparams[i], k0, k1, ray_u32, px_ref[...], py_ref[...],
-            n_spheres=0, max_depth=max_depth, sphere_kinds=(),
-            bg_kind=bg_kind, clay=clay, unrolled=False,
-            tri=None, tri_kinds=kinds,
-            bvh={"sph": sph, "vol": vol_, "tri": tri_, "mv": mv_},
-            record_ref=rec_ref, n_vol=n_vol, n_mv=len(mv_spans),
-            gens=gens, mix=mix, debug=debug,
-            mixn_tab=mixn_tab, d_mix=d_mix,
-        )
-        for ref, val in zip(outs, vals):
-            ref[...] = val
-
-    return kernel
-
-
-@functools.lru_cache(maxsize=32)
-def _bvh_call(max_depth, kinds, bg_kind, clay, rows, interpret,
-              n_sph_chunks, n_tri_chunks, k_sph, k_tri,
-              n_vol_chunks=0, k_vol=0, n_vol=0, record=False, gens=1,
-              mix=False, mv_spans=(), debug=None, d_mix=0, m_pad=0):
-    """pallas_call wrapper for one static BVH-kernel configuration.
-    ``record`` appends an (rows, max_depth * 256) int32 output holding the
-    per-bounce winner records.  ``gens`` > 1 makes each grid step cover
-    ``gens`` generations of 2048 rays (generation-scheduled wavefront;
-    requires rows % (8 * gens) == 0)."""
-    shape2d = (rows, BLOCK_COLS)
-    assert rows % (BLOCK_ROWS * gens) == 0
-    assert not (record and gens > 1)
-    grid = rows // (BLOCK_ROWS * gens)
-    block = pl.BlockSpec(
-        (BLOCK_ROWS * gens, BLOCK_COLS), lambda i, *_: (i, 0),
-        memory_space=pltpu.VMEM,
-    )
-    out = jax.ShapeDtypeStruct(shape2d, jnp.float32)
-
-    def full(r, c):
-        return pl.BlockSpec((r, c), lambda i, *_: (0, 0),
-                            memory_space=pltpu.VMEM)
-
-    nm = 1 if mix else 0
-    in_specs = []
-    if n_sph_chunks:
-        in_specs += [full(n_sph_chunks * 16, BVH_LEAF)] * (1 + nm)
-    if n_vol_chunks:
-        in_specs += [full(n_vol_chunks * 16, BVH_LEAF)] * (2 + nm)
-    if n_tri_chunks:
-        in_specs += [full(n_tri_chunks * 16, BVH_LEAF)] * (2 + nm)
-    n_mv_chunks = sum(nc for _, nc in mv_spans)
-    if n_mv_chunks:
-        in_specs += [full(n_mv_chunks * 16, BVH_LEAF)]
-    if d_mix:
-        in_specs += [full(16, m_pad)]
-    in_specs += [block, block, block]
-    n_out = 9 if bg_kind == B.SKYMAP else 3
-
-    kernel = _make_bvh_kernel(max_depth, kinds, bg_kind, clay, k_sph, k_tri,
-                              k_vol=k_vol, n_vol=n_vol, record=record,
-                              gens=gens, mix=mix, mv_spans=mv_spans,
-                              debug=debug, d_mix=d_mix)
-    out_specs = [block] * n_out
-    out_shape = [out] * n_out
-    if record:
-        # bounce rides SUBLANES (rows [b*8, (b+1)*8) per grid step): the
-        # kernel stores at a traced sublane offset, which Mosaic supports
-        # (dynamic LANE offsets are not cheap, and the unrolled chain that
-        # static lane slots would need does not compile with triangles)
-        out_specs.append(pl.BlockSpec(
-            (max_depth * BLOCK_ROWS, BLOCK_COLS), lambda i, *_: (i, 0),
-            memory_space=pltpu.VMEM))
-        out_shape.append(jax.ShapeDtypeStruct(
-            (rows * max_depth, BLOCK_COLS), jnp.int32))
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2 + 2 * bool(n_sph_chunks)
-        + 2 * bool(n_vol_chunks) + 2 * bool(n_tri_chunks),
-        grid=(grid,),
-        in_specs=in_specs,
-        out_specs=out_specs,
-    )
-
-    def run(iparams, fparams, scal, tens, ray_ids, px, py):
-        return pl.pallas_call(
-            kernel,
-            grid_spec=grid_spec,
-            out_shape=out_shape,
-            interpret=interpret,
-        )(iparams, fparams, *scal, *tens, ray_ids, px, py)
-
-    return run
-
-
-# ---------------------- record-driven winner-row fetch (kernel pair) ------
-#
-# The differentiable replay's bottleneck is fetching each recorded winner's
-# constants: XLA gathers run at ~7 ns/element on TPU (85 gather fusions =
-# 376 ms of a monkey-d50 fit step, docs/performance.md r5), and an
-# unrolled-vjp in-kernel replay spills ~32 MB of VMEM PER BOUNCE (measured:
-# 70/102/198 MB at depths 2/3/6 — the register allocator keeps every
-# bounce's one-hot matrices alive).  This pair sidesteps both: a
-# FORWARD-ONLY fetch kernel (2-D grid over ray blocks x bounces, one
-# bounce per step, ~256 KB VMEM) materializes the winner rows to HBM, the
-# XLA replay consumes them with zero gathers, and the hand-written
-# TRANSPOSE kernel scatters the row cotangents back onto the chunk
-# matrices with the same one-hots.  custom_vjp stitches the pair — no
-# Mosaic AD anywhere.
-
-FETCH_F = 26  # fields per (ray, bounce): 16 shading rows + 9 tri-geometry
-FETCH_GEO0 = 16  # tri geometry rows start here (_TG_V0.._TG_E2+2)
-FETCH_SUP = 1024  # one-hot superchunk width (8 leaf chunks per dot)
-
-
-def _make_fetch_kernel(nb, sph_span, sph_span_p, tri_span_p, bwd: bool):
-    """``nb`` bounces of winner-row fetch (bwd=False) or its transpose
-    (bwd=True) for one ray block.  Tables arrive in WIDE layout
-    (16/25 rows, span) so one (rows, FETCH_SUP) x (FETCH_SUP, 256) dot
-    covers 8 leaf chunks — tiny per-chunk dots measured latency-bound
-    (~2M dispatches at depth 50 erased the fetch win).  ``sph_span``:
-    the REAL sphere slot span (code-space boundary); ``*span_p``: spans
-    padded to FETCH_SUP multiples (0 = tree absent; pad slots never
-    match a recorded code)."""
-    has_sph = sph_span_p > 0
-    has_tri = tri_span_p > 0
-    hi = jax.lax.Precision.HIGHEST
-    F = FETCH_F if has_tri else 16
-    n_tri_rows = 25  # 16 shading + 9 geometry rows, fetched in one dot
-
-    def kernel(*refs):
-        refs = list(refs)
-        rec_ref = refs.pop(0)
-        if bwd:
-            g_ref = refs.pop(0)
-            d_sph_ref = refs.pop(0) if has_sph else None
-            d_tri_ref = refs.pop(0) if has_tri else None
-        else:
-            sph_ref = refs.pop(0) if has_sph else None
-            tri_ref = refs.pop(0) if has_tri else None
-            out_ref = refs.pop(0)
-        assert not refs
-
-        if bwd:
-            @pl.when(pl.program_id(0) == 0)
-            def _init():
-                if has_sph:
-                    d_sph_ref[...] = jnp.zeros_like(d_sph_ref)
-                if has_tri:
-                    d_tri_ref[...] = jnp.zeros_like(d_tri_ref)
-
-        iota = jax.lax.broadcasted_iota(jnp.int32, (FETCH_SUP, BLOCK_COLS),
-                                        0)
-
-        for k in range(nb):
-            raw = rec_ref[k * BLOCK_ROWS:(k + 1) * BLOCK_ROWS, :]
-            hit = raw >= 0
-            code = jnp.where(hit, raw & ((1 << 27) - 1), -1)
-            for r in range(BLOCK_ROWS):
-                code_r = code[r:r + 1, :]
-                hit_r = hit[r:r + 1, :]
-                if has_sph:
-                    mask = hit_r & (code_r >= 0) & (code_r < sph_span)
-                    for s0 in range(0, sph_span_p, FETCH_SUP):
-                        onehot = ((code_r - s0 == iota)
-                                  & mask).astype(jnp.float32)
-                        if bwd:
-                            g_par = jnp.concatenate(
-                                [g_ref[(k * F + j) * BLOCK_ROWS + r:
-                                       (k * F + j) * BLOCK_ROWS + r + 1,
-                                       :] for j in range(16)], axis=0)
-                            d = jax.lax.dot_general(
-                                g_par, onehot, (((1,), (1,)), ((), ())),
-                                precision=hi,
-                                preferred_element_type=jnp.float32)
-                            d_sph_ref[:, s0:s0 + FETCH_SUP] += d
-                        else:
-                            res = jax.lax.dot_general(
-                                sph_ref[:, s0:s0 + FETCH_SUP], onehot,
-                                (((1,), (0,)), ((), ())), precision=hi,
-                                preferred_element_type=jnp.float32)
-                            par_acc = (res if s0 == 0 else par_acc + res)
-                if has_tri:
-                    local = code_r - sph_span
-                    mask = hit_r & (local >= 0)
-                    for s0 in range(0, tri_span_p, FETCH_SUP):
-                        onehot = ((local - s0 == iota)
-                                  & mask).astype(jnp.float32)
-                        if bwd:
-                            g_all = jnp.concatenate(
-                                [g_ref[(k * F + j) * BLOCK_ROWS + r:
-                                       (k * F + j) * BLOCK_ROWS + r + 1,
-                                       :] for j in range(n_tri_rows)],
-                                axis=0)                       # (25, 256)
-                            d = jax.lax.dot_general(
-                                g_all, onehot, (((1,), (1,)), ((), ())),
-                                precision=hi,
-                                preferred_element_type=jnp.float32)
-                            d_tri_ref[:, s0:s0 + FETCH_SUP] += d
-                        else:
-                            res = jax.lax.dot_general(
-                                tri_ref[:, s0:s0 + FETCH_SUP], onehot,
-                                (((1,), (0,)), ((), ())), precision=hi,
-                                preferred_element_type=jnp.float32)
-                            tri_acc = (res if s0 == 0 else tri_acc + res)
-                if not bwd:
-                    if has_tri:
-                        par = (par_acc + tri_acc[:16] if has_sph
-                               else tri_acc[:16])
-                        for j in range(16):
-                            out_ref[(k * F + j) * BLOCK_ROWS + r:
-                                    (k * F + j) * BLOCK_ROWS + r + 1,
-                                    :] = par[j:j + 1, :]
-                        for j in range(9):
-                            jj = FETCH_GEO0 + j
-                            out_ref[(k * F + jj) * BLOCK_ROWS + r:
-                                    (k * F + jj) * BLOCK_ROWS + r + 1,
-                                    :] = tri_acc[16 + j:17 + j, :]
-                    else:
-                        for j in range(16):
-                            out_ref[(k * F + j) * BLOCK_ROWS + r:
-                                    (k * F + j) * BLOCK_ROWS + r + 1,
-                                    :] = par_acc[j:j + 1, :]
-
-    return kernel
-
-
-@functools.lru_cache(maxsize=32)
-def _fetch_rows_cvjp(rows, nb, sph_span, sph_span_p, tri_span_p,
-                     interpret):
-    """custom_vjp winner-row fetch over ``nb`` bounces of a PRE-SLICED
-    record group (rows * nb, 256) -> (rows * nb * F, 256) f32 rows.
-
-    Tables arrive WIDE: sph (16, sph_span_p), tri (25, tri_span_p) — the
-    XLA caller reshapes the chunk matrices ((nc*16, 128) -> (16, span))
-    and stacks tri shading+geometry; those reshapes are differentiable,
-    so the transpose kernel's wide cotangents route back automatically.
-    Layout: grid step i (one ray block) owns out rows
-    [i*nb*F*8, ...); bounce k's field j at sub-rows (k*F+j)*8.
+def mse_loss_pallas(scene: Scene, target, width: int, height: int, iparams,
+                    *, kinds: tuple | None = None, interpret: bool = False,
+                    block: int = FWD_BLOCK, num_warps: int = FWD_WARPS,
+                    grad_block: int = GRAD_BLOCK,
+                    grad_warps: int = GRAD_WARPS):
+    """jnp.mean((render_linear(scene) - target)**2) over the FULL frame
+    with a FUSED loss+gradient kernel: under value_and_grad the whole fit
+    step is one kernel launch (no separate forward render).  ``target`` is
+    (H, W, 3) linear radiance and is treated as a CONSTANT of the fit (its
+    cotangent is zero).  Gate (checked by the caller on the concrete
+    scene): :func:`supports_fused_mse`.
     """
-    has_sph = sph_span_p > 0
-    has_tri = tri_span_p > 0
-    grid = (rows // BLOCK_ROWS,)
-    F = FETCH_F if has_tri else 16
-
-    rec_block = pl.BlockSpec((nb * BLOCK_ROWS, BLOCK_COLS),
-                             lambda i: (i, 0), memory_space=pltpu.VMEM)
-    row_block = pl.BlockSpec((nb * F * BLOCK_ROWS, BLOCK_COLS),
-                             lambda i: (i, 0), memory_space=pltpu.VMEM)
-
-    def wide(r, span):
-        return pl.BlockSpec((r, span), lambda i: (0, 0),
-                            memory_space=pltpu.VMEM)
-
-    tab_specs = []
-    tab_shapes = []
-    if has_sph:
-        tab_specs.append(wide(16, sph_span_p))
-        tab_shapes.append(jax.ShapeDtypeStruct((16, sph_span_p),
-                                               jnp.float32))
-    if has_tri:
-        tab_specs.append(wide(25, tri_span_p))
-        tab_shapes.append(jax.ShapeDtypeStruct((25, tri_span_p),
-                                               jnp.float32))
-
-    fwd_kernel = _make_fetch_kernel(nb, sph_span, sph_span_p, tri_span_p,
-                                    bwd=False)
-    bwd_kernel = _make_fetch_kernel(nb, sph_span, sph_span_p, tri_span_p,
-                                    bwd=True)
-
-    def run_fwd(rec_g, *tabs):
-        return pl.pallas_call(
-            fwd_kernel,
-            grid=grid,
-            in_specs=[rec_block] + tab_specs,
-            out_specs=row_block,
-            out_shape=jax.ShapeDtypeStruct(
-                (rows * nb * F, BLOCK_COLS), jnp.float32),
-            interpret=interpret,
-        )(rec_g, *tabs)
-
-    def run_bwd(rec_g, g):
-        return pl.pallas_call(
-            bwd_kernel,
-            grid=grid,
-            in_specs=[rec_block, row_block],
-            out_specs=tab_specs,
-            out_shape=tab_shapes,
-            interpret=interpret,
-        )(rec_g, g)
-
-    @jax.custom_vjp
-    def fetch(rec_g, *tabs):
-        return run_fwd(rec_g, *tabs)
-
-    def fetch_fwd(rec_g, *tabs):
-        return fetch(rec_g, *tabs), rec_g
-
-    def fetch_bwd(rec_g, g):
-        d_tabs = run_bwd(rec_g, g)
-        f0 = jax.dtypes.float0
-        return (np.zeros(rec_g.shape, f0), *d_tabs)
-
-    fetch.defvjp(fetch_fwd, fetch_bwd)
-    return fetch
-
-
-def _fetch_wide_tabs(tens, n_sph_chunks, n_tri_chunks):
-    """Chunk matrices -> the fetch kernels' WIDE layout + padded spans.
-
-    [sph_s][, tri_g, tri_s] (each (nc*16, 128)) -> ([sph (16, span_p)],
-    [tri (25, span_p)]) with spans padded to FETCH_SUP multiples (pad
-    slots all-zero; recorded codes never point at them).  Pure jnp —
-    differentiable, so d(wide) flows back to the chunk matrices."""
-    lf = BVH_LEAF
-    out = []
-    spans = []
-    i = 0
-
-    def widen(tab, nc):
-        w = tab.reshape(nc, 16, lf).transpose(1, 0, 2).reshape(16, nc * lf)
-        span = nc * lf
-        span_p = -(-span // FETCH_SUP) * FETCH_SUP
-        if span_p > span:
-            w = jnp.pad(w, ((0, 0), (0, span_p - span)))
-        return w, span_p
-
-    if n_sph_chunks:
-        w, span_p = widen(tens[i], n_sph_chunks)
-        out.append(w)
-        spans.append(span_p)
-        i += 1
-    else:
-        spans.append(0)
-    if n_tri_chunks:
-        g_w, span_p = widen(tens[i], n_tri_chunks)
-        s_w, _ = widen(tens[i + 1], n_tri_chunks)
-        # 25 rows: shading 0-15, geometry 16-24 (_TG_V0.._TG_E2+2)
-        out.append(jnp.concatenate([s_w, g_w[:9]], axis=0))
-        spans.append(span_p)
-    else:
-        spans.append(0)
-    return tuple(out), tuple(spans)
-
-
-def _bvh_prep(scene: Scene, width: int, height: int, mix: bool,
-              mv_spans: tuple, m_pad: int = 0):
-    """Scene -> (fparams, node tables, chunk tensor operands) for the
-    packet-traversal kernels (shared by the custom_vjp primal, the record
-    pass, and the env-IS hybrid).  ``m_pad`` > 0 (nested mixes): chunk
-    shading rows carry raw material ids and the (16, m_pad) resolution
-    table rides as the last tensor operand."""
-    cb = scene.cbvh
-    mixn = m_pad > 0
-    fparams = _pack_fparams(scene, width, height, with_spheres=False,
-                            mesh_vols=bool(mv_spans))
-    scal, tens = [], []
-    if cb.n_sph_chunks:
-        scal += [cb.sph_nodes_f, cb.sph_nodes_i]
-        tens += [_pack_sphere_chunks(scene, cb.sph_perm, mixn=mixn)]
-        if mix:
-            tens += [_pack_chunks_s2(scene, cb.sph_perm)]
-    if cb.n_vol_chunks:
-        scal += [cb.vol_nodes_f, cb.vol_nodes_i]
-        tens += list(_pack_vol_chunks(scene, cb.vol_perm, mixn=mixn))
-        if mix:
-            tens += [_pack_chunks_s2(scene, cb.vol_perm)]
-    if cb.n_tri_chunks:
-        scal += [cb.tri_nodes_f, cb.tri_nodes_i]
-        tens += list(_pack_tri_chunks(scene, cb.tri_perm, mixn=mixn))
-        if mix:
-            tens += [_pack_chunks_s2(scene, cb.tri_perm, tri=True)]
-    if mv_spans:
-        tens += [_pack_mv_chunks(scene, cb.mv_perm)]
-    if mixn:
-        tens += [_pack_mixn_table(scene, m_pad)]
-    return fparams, scal, tens
-
-
-@functools.lru_cache(maxsize=32)
-def _bvh_cvjp(max_depth, kinds, bg_kind, clay, rows, interpret,
-              n_sph_chunks, n_tri_chunks, k_sph, k_tri,
-              width, height, n_rays, n_vol_chunks=0, k_vol=0, n_vol=0,
-              gens=1, mix=False, mv_spans=(), d_mix=0, m_pad=0):
-    """custom_vjp-wrapped BVH-kernel radiance for one static configuration.
-
-    Primal: the packet-traversal forward kernel (while-loop traversal, no
-    AD rule needed).  Under differentiation the fwd pass runs the RECORD
-    variant (per-bounce winner-slot records) and the backward is ``jax.vjp``
-    of the XLA shading REPLAY over those records (diff/replay.py) — exact
-    detached-hit gradients at a gather per bounce instead of the dense XLA
-    intersector.  The whole Scene pytree is the differentiable operand.
-    """
-
-    def prep(scene, width=width, height=height):
-        return _bvh_prep(scene, width, height, mix, mv_spans, m_pad=m_pad)
-
-    def finish(scene, outs):
-        if bg_kind == B.SKYMAP:
-            return _env_finish(scene, outs, n_rays)
-        rad_r, rad_g, rad_b = outs
-        return jnp.stack(
-            [rad_r.reshape(-1), rad_g.reshape(-1), rad_b.reshape(-1)],
-            axis=-1,
-        )[:n_rays]
-
-    args = (max_depth, kinds, bg_kind, clay, rows, interpret,
-            n_sph_chunks, n_tri_chunks, k_sph, k_tri,
-            n_vol_chunks, k_vol, n_vol)
-    # the primal may be generation-scheduled (pure scheduling — bitwise
-    # identical per ray); the record variant stays single-generation
-    run_fwd = _bvh_call(*args, gens=gens, mix=mix, mv_spans=mv_spans,
-                        d_mix=d_mix, m_pad=m_pad)
-    run_rec = _bvh_call(*args, record=True, mix=mix, mv_spans=mv_spans,
-                        d_mix=d_mix, m_pad=m_pad)
-
-    @jax.custom_vjp
-    def radiance(scene, iparams, ray_ids, px, py):
-        fparams, scal, tens = prep(scene)
-        outs = run_fwd(iparams, fparams, scal, tens, ray_ids, px, py)
-        return finish(scene, outs)
-
-    def radiance_fwd(scene, iparams, ray_ids, px, py):
-        fparams, scal, tens = prep(scene)
-        *outs, rec = run_rec(iparams, fparams, scal, tens, ray_ids, px, py)
-        primal = finish(scene, outs)
-        # records ride the residuals RAW ((rows*depth, 256) kernel layout):
-        # the replay-grad kernel consumes them block-for-block; the XLA
-        # replay fallback flattens lazily in bwd
-        return primal, (scene, rec, iparams, ray_ids, px, py)
-
-    # Kernel-fetched backward (r5, VERDICT r4 weak #1): the XLA replay's
-    # table gathers lower to ~7 ns/element scalar loops on TPU and were
-    # 52% of a monkey-d50 fit step (85 gather fusions, 376 ms —
-    # docs/performance.md "where the record+replay step goes").  For the
-    # core scene classes the winner rows are materialized by the Pallas
-    # fetch kernel pair (_fetch_rows_cvjp) and the shading replay runs
-    # gather-free in XLA (diff/replay.replay_rows_radiance); chunk-matrix
-    # cotangents come back through the hand-written transpose kernel and
-    # route to scene leaves via jax.vjp of the packing.
-    # OPT-IN (r5 measured verdict, docs/performance.md "the winner-fetch
-    # wall"): at depth 50 on monkey the fetch-kernel backward lands within
-    # ~5% of the gather replay (700 vs 728 ms/step) — the one-hot dots pay
-    # a 5x MXU M-padding tax (25 useful rows vs the 128-wide systolic
-    # array) that almost exactly cancels the gathers' ~7 ns/element
-    # scalar-loop tax, and for WIDE tables (cool_cube's 28k slots) the
-    # dots scale with table size while gathers do not.  The machinery
-    # stays (bitwise-validated vs the gather replay in both modes) as the
-    # foundation for a generation-scheduled record pass, which is the
-    # other half of the bill.
-    fetch_path_ok = (
-        not mix and d_mix == 0 and n_vol == 0 and not mv_spans
-        and bg_kind in (B.UNIFORM, B.GRADIENT)
-        and n_vol_chunks == 0
-        and (n_sph_chunks + n_tri_chunks) > 0
-        and os.environ.get("RTRT_REPLAY_FETCH") == "1"
-        # test hook: force the classic gather replay for A/B comparisons
-        # (read at cvjp-build time; tests clear the lru_cache)
-        and not os.environ.get("RTRT_REPLAY_KERNEL_DISABLE")
-    )
-
-    def radiance_bwd(res, ct):
-        scene, rec_raw, iparams, ray_ids, px, py = res
-        f0 = jax.dtypes.float0
-        zeros_tail = (np.zeros(iparams.shape, f0),
-                      np.zeros(ray_ids.shape, f0),
-                      jnp.zeros_like(px), jnp.zeros_like(py))
-        flat = lambda v: v.reshape(-1)[:n_rays]
-
-        if fetch_path_ok:
-            from ..diff.replay import replay_rows_radiance
-
-            def pack_tens(s):
-                _fp, _scal, tens = prep(s)
-                return tuple(tens)
-
-            tens_val, pack_vjp = jax.vjp(pack_tens, scene)
-
-            def rp2(s, tens2):
-                return replay_rows_radiance(
-                    s, tens2, rec_raw, iparams, flat(ray_ids),
-                    flat(px), flat(py), width, height, rows=rows,
-                    max_depth=max_depth, n_sph_chunks=n_sph_chunks,
-                    n_tri_chunks=n_tri_chunks, interpret=interpret,
-                    clay=clay,
-                    group=int(os.environ.get("RTRT_FETCH_GROUP", "10")))
-
-            _, vjp_fn = jax.vjp(rp2, scene, tens_val)
-            d_direct, d_tens = vjp_fn(ct)
-            (d_pack,) = pack_vjp(d_tens)
-
-            def _add(x, y):
-                # int leaves carry symbolic-zero float0 cotangents
-                if (getattr(x, "dtype", None) == f0
-                        or getattr(y, "dtype", None) == f0):
-                    return x
-                return x + y
-
-            dscene = jax.tree.map(_add, d_direct, d_pack)
-            return (dscene, *zeros_tail)
-
-        from ..diff.replay import replay_radiance
-
-        rec = _bvh_rec_flat(rec_raw, rows, max_depth, n_rays)
-
-        def rp(s):
-            return replay_radiance(s, rec, iparams, flat(ray_ids),
-                                   flat(px), flat(py), width, height)
-
-        _, vjp_fn = jax.vjp(rp, scene)
-        (dscene,) = vjp_fn(ct)
-        return (dscene, *zeros_tail)
-
-    radiance.defvjp(radiance_fwd, radiance_bwd)
-    return radiance
-
-
-# ------------------------------------------- occlusion (shadow-ray) kernel
-#
-# One intersect-only pass for NEE shadow rays (the env-importance-sampling
-# hybrid, r4): given a batch of rays, traverse the chunk trees and answer
-# "does ANYTHING lie along this ray?" — the XLA integrator's
-# `closest_hit(scene, hit.point, d_l, un[:, 2:]).hit` (integrator.py
-# env_is block) at kernel speed.  Volume spheres occlude stochastically
-# exactly as in closest_hit: the kernel derives the SAME free-flight
-# uniform columns (nee stream, columns 2..) from the ray ids in-kernel.
-
-def _make_occlusion_kernel(k_sph, k_vol, k_tri, n_vol):
-    has_sph = k_sph > 0
-    has_vol = k_vol > 0
-    has_tri = k_tri > 0
-
-    def kernel(iparams, *refs):
-        refs = list(refs)
-        sph_nodes = refs[:2] if has_sph else None
-        if has_sph:
-            refs = refs[2:]
-        vol_nodes = refs[:2] if has_vol else None
-        if has_vol:
-            refs = refs[2:]
-        tri_nodes = refs[:2] if has_tri else None
-        if has_tri:
-            refs = refs[2:]
-        sph_s = vol_s = vol_x = tri_g = tri_s = None
-        if has_sph:
-            sph_s = refs.pop(0)
-        if has_vol:
-            vol_s = refs.pop(0)
-            vol_x = refs.pop(0)
-        if has_tri:
-            tri_g = refs.pop(0)
-            tri_s = refs.pop(0)
-        (ray_id_ref, ox_ref, oy_ref, oz_ref,
-         dx_ref, dy_ref, dz_ref) = refs[:7]
-        out_ref = refs[7]
-
-        seed_hi = iparams[0].astype(jnp.uint32)
-        seed_lo = iparams[1].astype(jnp.uint32)
-        stream = iparams[2].astype(jnp.uint32)
-        ray_id = ray_id_ref[...]
-        ray_u32 = ray_id.astype(jnp.uint32)
-        k0 = jnp.full(ray_id.shape, 0, jnp.uint32) + seed_hi
-        k1 = jnp.full(ray_id.shape, 0, jnp.uint32) + seed_lo
-
-        ox, oy, oz = ox_ref[...], oy_ref[...], oz_ref[...]
-        dx, dy, dz = dx_ref[...], dy_ref[...], dz_ref[...]
-        a = _dot3(dx, dy, dz, dx, dy, dz)
-        inv_dx = 1.0 / dx
-        inv_dy = 1.0 / dy
-        inv_dz = 1.0 / dz
-        zero = jnp.zeros_like(dx)
-        alive = jnp.ones_like(dx) > 0.0
-        t_best = jnp.full_like(dx, jnp.inf)
-        par = tuple(zero for _ in range(16))
-        win = zero
-        o3 = (ox, oy, oz)
-        d3 = (dx, dy, dz)
-
-        if has_sph:
-            nf, ni = sph_nodes
-
-            def sph_leaf(chunk, tb, pr, wn, s_ref=sph_s, a=a):
-                return _sphere_chunk_hit(s_ref, chunk, o3, d3, a,
-                                         tb, pr, wn)
-
-            t_best, par, win = _traverse_tree(
-                nf, ni, k_sph, sph_leaf, ox, oy, oz,
-                inv_dx, inv_dy, inv_dz, alive, t_best, par, win)
-        if has_vol:
-            nf, ni = vol_nodes
-            ray_len = jnp.sqrt(a)
-            # the shadow closest_hit consumes columns 2.. of the NEE
-            # stream (integrator.py: un[:, 2:]) — derive the identical
-            # draws from the ray ids
-            us = _stream_uniforms(k0, k1, ray_u32, stream, 2 + n_vol)
-            u_vols = us[2:]
-
-            def vol_leaf(chunk, tb, pr, wn, s_ref=vol_s, x_ref=vol_x,
-                         a=a, ray_len=ray_len):
-                return _vol_chunk_hit(s_ref, x_ref, chunk, o3, d3, a,
-                                      ray_len, u_vols, tb, pr, wn)
-
-            t_best, par, win = _traverse_tree(
-                nf, ni, k_vol, vol_leaf, ox, oy, oz,
-                inv_dx, inv_dy, inv_dz, alive, t_best, par, win)
-        if has_tri:
-            nf, ni = tri_nodes
-
-            def tri_leaf(chunk, tb, pr, wn, g_ref=tri_g, s_ref=tri_s):
-                return _tri_chunk_hit(g_ref, s_ref, chunk, o3, d3,
-                                      tb, pr, wn)
-
-            t_best, par, win = _traverse_tree(
-                nf, ni, k_tri, tri_leaf, ox, oy, oz,
-                inv_dx, inv_dy, inv_dz, alive, t_best, par, win)
-
-        out_ref[...] = jnp.where(t_best < jnp.inf, 1.0, 0.0)
-
-    return kernel
-
-
-@functools.lru_cache(maxsize=32)
-def _occlusion_call(rows, interpret, n_sph_chunks, n_tri_chunks,
-                    k_sph, k_tri, n_vol_chunks=0, k_vol=0, n_vol=0):
-    shape2d = (rows, BLOCK_COLS)
-    grid = rows // BLOCK_ROWS
-    block = pl.BlockSpec(
-        (BLOCK_ROWS, BLOCK_COLS), lambda i, *_: (i, 0),
-        memory_space=pltpu.VMEM,
-    )
-
-    def full(r, c):
-        return pl.BlockSpec((r, c), lambda i, *_: (0, 0),
-                            memory_space=pltpu.VMEM)
-
-    in_specs = []
-    if n_sph_chunks:
-        in_specs += [full(n_sph_chunks * 16, BVH_LEAF)]
-    if n_vol_chunks:
-        in_specs += [full(n_vol_chunks * 16, BVH_LEAF)] * 2
-    if n_tri_chunks:
-        in_specs += [full(n_tri_chunks * 16, BVH_LEAF)] * 2
-    in_specs += [block] * 7
-
-    kernel = _make_occlusion_kernel(k_sph, k_vol, k_tri, n_vol)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1 + 2 * bool(n_sph_chunks)
-        + 2 * bool(n_vol_chunks) + 2 * bool(n_tri_chunks),
-        grid=(grid,),
-        in_specs=in_specs,
-        out_specs=block,
-    )
-
-    def run(iparams, scal, tens, ray_ids, o3, d3):
-        return pl.pallas_call(
-            kernel,
-            grid_spec=grid_spec,
-            out_shape=jax.ShapeDtypeStruct(shape2d, jnp.float32),
-            interpret=interpret,
-        )(iparams, *scal, *tens, ray_ids, *o3, *d3)
-
-    return run
-
-
-def occlusion_bvh(scene: Scene, o, d, stream, iparams, ray_ids,
-                  interpret: bool = False, prepped=None):
-    """Shadow-ray occlusion test over the chunk trees -> (R,) bool.
-
-    ``o``/``d``: (R, 3) ray origins/directions; ``stream``: the uniform
-    stream id whose columns 2.. supply each volume's free-flight draw
-    (the NEE stream of the bounce, matching the XLA integrator's
-    ``closest_hit(..., un[:, 2:])``); ``ray_ids``: (R,) global ray ids.
-    Inputs are treated as NON-differentiable (the result is a discrete
-    mask; callers stop_gradient the operands).  ``prepped``: optional
-    (scal, tens) node tables + NON-S2 chunk tensors already built by the
-    caller (the env hybrid packs once per step, not once per bounce)."""
-    cb = scene.cbvh
-    r = o.shape[0]
-    pad = (-r) % BLOCK
-
-    def blk(v, fill=0.0):
-        if pad:
-            v = jnp.concatenate(
-                [v, jnp.full((pad,), fill, v.dtype)])
-        return v.reshape(-1, BLOCK_COLS)
-    rows = (r + pad) // BLOCK_COLS
-
-    run = _occlusion_call(
-        rows, interpret, cb.n_sph_chunks, cb.n_tri_chunks,
-        cb.sph_nodes, cb.tri_nodes,
-        n_vol_chunks=cb.n_vol_chunks, k_vol=cb.vol_nodes,
-        n_vol=scene.spheres.num_volumes,
-    )
-    if prepped is None:
-        scal, tens = [], []
-        if cb.n_sph_chunks:
-            scal += [cb.sph_nodes_f, cb.sph_nodes_i]
-            tens += [_pack_sphere_chunks(scene, cb.sph_perm)]
-        if cb.n_vol_chunks:
-            scal += [cb.vol_nodes_f, cb.vol_nodes_i]
-            tens += list(_pack_vol_chunks(scene, cb.vol_perm))
-        if cb.n_tri_chunks:
-            scal += [cb.tri_nodes_f, cb.tri_nodes_i]
-            tens += list(_pack_tri_chunks(scene, cb.tri_perm))
-    else:
-        scal, tens = prepped
-    ip3 = jnp.concatenate([jnp.asarray(iparams, jnp.int32).reshape(-1)[:2],
-                           jnp.asarray([stream], jnp.int32)])
-    # pad DIRECTIONS with 1.0: a zero-direction pad lane would slab-test
-    # as (lo - o) * inf -> every origin-straddling node "hits", dragging
-    # whole subtrees into the last block's leaf tests and breeding
-    # 0*inf NaNs (benign only by accident)
-    out = run(ip3, tuple(scal), tuple(tens), blk(ray_ids),
-              tuple(blk(o[:, i]) for i in range(3)),
-              tuple(blk(d[:, i], fill=1.0) for i in range(3)))
-    return out.reshape(-1)[:r] > 0.5
-
-
-# Generation-count policy, from v5e measurements on the reference bench
-# shapes (docs/performance.md): deep chains win hugely from many
-# generations (monkey depth 50: 1.26M -> 11.5M rays/s from G=1 to G=128 —
-# per-lane dead-ray waste is THE cost there), shallow chains still gain
-# ~1.3x at G=8 (bvh_stress depth 6: 10.0M -> 13.4M).  G is capped by the
-# measured-safe VMEM envelope (metadata + accumulators scale with G) and
-# by the ray count (>= one full generation per grid step, so padding
-# never exceeds one generation).
-GENS_DEEP_DEPTH = 16
-GENS_DEEP_MAX = 64
-GENS_SHALLOW_MAX = 8
-
-
-def _pick_gens(max_depth: int, n_rays: int, bg_kind: int) -> int:
-    if bg_kind == B.SKYMAP:
-        return 1  # per-lane miss records would need G register sets
-    cap = GENS_DEEP_MAX if max_depth >= GENS_DEEP_DEPTH else GENS_SHALLOW_MAX
-    g = min(cap, max(1, n_rays // BLOCK))
-    # pallas grids want a power-of-two-ish divisor chain; keep g a power
-    # of two so rows % (8 * g) stays satisfiable by construction
-    p = 1
-    while p * 2 <= g:
-        p *= 2
-    return p
-
-
-def _bvh_rec_flat(rec_raw, rows, max_depth, n_rays):
-    """(rows * depth, 256) record buffer -> per-ray (n_rays, depth):
-    grid step g owns rows [g*depth*8, (g+1)*depth*8), bounce b its rows
-    [b*8, (b+1)*8) (the record BlockSpec in _bvh_call)."""
-    grid = rows // BLOCK_ROWS
-    rec = rec_raw.reshape(grid, max_depth, BLOCK_ROWS, BLOCK_COLS)
-    return rec.transpose(0, 2, 3, 1).reshape(rows * BLOCK_COLS,
-                                             max_depth)[:n_rays]
-
-
-def _occlusion_prep(scene: Scene):
-    """(scal, tens) for :func:`occlusion_bvh` — the non-S2 chunk subset."""
-    cb = scene.cbvh
-    scal, tens = [], []
-    if cb.n_sph_chunks:
-        scal += [cb.sph_nodes_f, cb.sph_nodes_i]
-        tens += [_pack_sphere_chunks(scene, cb.sph_perm)]
-    if cb.n_vol_chunks:
-        scal += [cb.vol_nodes_f, cb.vol_nodes_i]
-        tens += list(_pack_vol_chunks(scene, cb.vol_perm))
-    if cb.n_tri_chunks:
-        scal += [cb.tri_nodes_f, cb.tri_nodes_i]
-        tens += list(_pack_tri_chunks(scene, cb.tri_perm))
-    return scal, tens
-
-
-def _bvh_env_radiance(scene: Scene, pixel_ids, width: int, height: int,
-                      iparams, *, kinds=None, interpret=False,
-                      sample_offset=0, n_samples=None, mix_cfg=None):
-    """HDRI importance sampling on the Pallas path (r4, BASELINE config
-    #4): record-kernel walk + occlusion-kernel NEE shadow rays + the
-    differentiable XLA MIS replay.  -> (P, 3) mean clamped radiance.
-
-    Differentiable in the full scene pytree (the replay is the primal;
-    the two kernel passes consume DETACHED operands and produce discrete
-    outputs, so no custom AD rules are needed).  TILED with lax.map over
-    pixel batches: the replay's sky-CDF inversion materializes
-    (tile_rays, sky_width) intermediates per bounce, so the tile size is
-    bounded by the HDRI width (a 512x512 spp8 frame against a 2k-wide
-    sky would otherwise OOM)."""
-    if scene.num_mesh_volumes > 0:
-        raise ValueError(
-            "env_importance_sampling + mesh-bounded volumes: the "
-            "occlusion kernel does not model stochastic fog shadowing; "
-            "use engine='xla' (supports_bvh refuses this combination — "
-            "only an explicit engine override reaches here)")
-    sg = jax.lax.stop_gradient
     if kinds is None:
-        kinds = _bvh_kinds(scene)
-    cb = scene.cbvh
+        kinds = sphere_kinds(scene)
     spp = scene.settings.samples_per_pixel
-    max_depth = scene.settings.max_ray_depth
-    p = pixel_ids.shape[0]
-    n_local = n_samples if n_samples is not None else spp
-    # static mix scheme (like ``kinds``, must be resolved OUTSIDE jit —
-    # the DAG topology lives in traced arrays)
-    mix, d_mix, m_pad = mix_cfg if mix_cfg is not None else _mixn_cfg(scene)
+    # each pixel's samples fill a power-of-two group of rays; real rays
+    # keep GLOBAL ids pixel*spp + s, so the gradients match the two-pass
+    # path; pad rays trace throwaway samples the loss ignores
+    spp_pad = _pow2(spp)
+    grad_block = max(grad_block, spp_pad)
+    n_pixels = width * height
+    pixel_ids = jnp.arange(n_pixels, dtype=jnp.int32)
+    ray_ids, px, py, _ = _prep_rays(pixel_ids, spp, width,
+                                    max(block, grad_block), 0, spp_pad)
+    n_pad = ray_ids.shape[0]
+    fparams = _pack_fparams(scene, width, height,
+                            mix=bool(scene.materials.has_mix))
 
-    # pack ONCE per evaluation: the record operands (detached) and the
-    # occlusion operands (non-S2 subset, detached), shared by every tile
-    # and every bounce's shadow pass
-    fparams, scal, tens = _bvh_prep(sg(scene), width, height, mix, (),
-                                    m_pad=m_pad)
-    occ_prep = _occlusion_prep(sg(scene))
+    # per-pixel targets + exact-mean weights (pad pixels weigh 0)
+    t3 = jax.lax.stop_gradient(jnp.asarray(target)).reshape(n_pixels, 3)
+    pix_pad = n_pad // spp_pad - n_pixels
+    t3 = jnp.concatenate([t3, jnp.zeros((pix_pad, 3), jnp.float32)])
+    tgt = tuple(t3[:, c] for c in range(3))
+    wt = jnp.concatenate([
+        jnp.full((n_pixels,), 1.0 / (3.0 * n_pixels), jnp.float32),
+        jnp.zeros((pix_pad,), jnp.float32)])
 
-    # tile size: bound the (tile_rays, sky_width) replay intermediates
-    # to ~64 MB f32
-    w_sky = int(scene.background.image.shape[1])
-    tile_rays = min(max((1 << 24) // max(w_sky, 64), BLOCK), 1 << 20)
-    tile_rays -= tile_rays % BLOCK
-    tile_pixels = max(1, tile_rays // max(n_local, 1))
-    n_tiles = -(-p // tile_pixels)
-    padded_p = n_tiles * tile_pixels
-    ids_pad = jnp.concatenate(
-        [pixel_ids, jnp.zeros((padded_p - p,), pixel_ids.dtype)]) \
-        if padded_p > p else pixel_ids
-    tiles = ids_pad.reshape(n_tiles, tile_pixels)
-
-    from ..diff.replay import replay_radiance
-    from ..render.integrator import nee_stream
-
-    def one_tile(tile_ids):
-        ray_ids, px, py, rows, n_rays = _prep_rays(
-            tile_ids, spp, width, sample_offset, n_samples)
-        run_rec = _bvh_call(
-            max_depth, kinds, scene.background.kind,
-            scene.settings.mode == MODE_CLAY, rows, interpret,
-            cb.n_sph_chunks, cb.n_tri_chunks, cb.sph_nodes, cb.tri_nodes,
-            n_vol_chunks=cb.n_vol_chunks, k_vol=cb.vol_nodes,
-            n_vol=scene.spheres.num_volumes, record=True, mix=mix,
-            d_mix=d_mix, m_pad=m_pad,
-        )
-        *_outs, rec_raw = run_rec(iparams, fparams, scal, tens,
-                                  ray_ids, px, py)
-        rec = _bvh_rec_flat(rec_raw, rows, max_depth, n_rays)
-        flat = lambda v: v.reshape(-1)[:n_rays]
-
-        def occlude(point, d_l, b):
-            return occlusion_bvh(sg(scene), point, d_l,
-                                 nee_stream(b, max_depth), iparams,
-                                 flat(ray_ids), interpret=interpret,
-                                 prepped=occ_prep)
-
-        radiance = replay_radiance(scene, rec, iparams, flat(ray_ids),
-                                   flat(px), flat(py), width, height,
-                                   env={"occlude": occlude})
-        return radiance.reshape(tile_pixels, n_local, 3)
-
-    if n_tiles == 1:
-        per_px = one_tile(tiles[0])
-    else:
-        per_px = jax.lax.map(one_tile, tiles).reshape(
-            padded_p, n_local, 3)
-    radiance = jnp.clip(per_px, 0.0, scene.settings.clamp_indirect)
-    return radiance[:p].mean(axis=1)
-
-
-def pixel_radiance_pallas_bvh(scene: Scene, pixel_ids, width: int,
-                              height: int, iparams, *,
-                              kinds: tuple | None = None,
-                              interpret: bool = False,
-                              sample_offset=0,
-                              n_samples: int | None = None,
-                              gens: int | None = None,
-                              mix_cfg: tuple | None = None):
-    """Mean clamped radiance per pixel -> (P, 3) via the packet-traversal
-    kernel — the fast path for scenes beyond :func:`supports`' brute-force
-    limits (gated by :func:`supports_bvh`).  DIFFERENTIABLE: the traversal
-    while_loop itself has no AD rule, so under ``jax.grad`` the forward
-    records per-bounce winner slots and the backward replays the shading
-    chain over them in XLA (_bvh_cvjp / diff/replay.py).
-    ``sample_offset``/``n_samples`` restrict to a sample slice (spp
-    sharding, parallel/distributed.py); the mean is over the LOCAL slice.
-    """
-    if _env_is_active(scene):
-        # r4 hybrid: the record kernel drives the walk (the naive walk
-        # visits exactly the hits the MIS estimator shades), shadow rays
-        # run the occlusion kernel, and the differentiable XLA replay
-        # assembles the one-sample-MIS estimator
-        return _bvh_env_radiance(scene, pixel_ids, width, height, iparams,
-                                 kinds=kinds, interpret=interpret,
-                                 sample_offset=sample_offset,
-                                 n_samples=n_samples, mix_cfg=mix_cfg)
-    cb = scene.cbvh
-    if kinds is None:
-        kinds = _bvh_kinds(scene)
-    spp = scene.settings.samples_per_pixel
-    # static mix scheme (resolved OUTSIDE jit when callers pass mix_cfg,
-    # mirroring the ``kinds`` contract)
-    mix, d_mix, m_pad = mix_cfg if mix_cfg is not None else _mixn_cfg(scene)
-    debug = {MODE_NORMAL: "normal", MODE_RANDOM: "random"}.get(
-        scene.settings.mode)
-    if debug is not None:
-        gens = 1  # single intersection pass; nothing to refill
-    if gens is None:
-        n = pixel_ids.shape[0] * (n_samples if n_samples is not None
-                                  else spp)
-        gens = _pick_gens(scene.settings.max_ray_depth, n,
-                          scene.background.kind)
-    p = pixel_ids.shape[0]
-    ray_ids, px, py, rows, n_rays = _prep_rays(pixel_ids, spp, width,
-                                               sample_offset, n_samples,
-                                               block_mult=gens)
-    n_local = n_samples if n_samples is not None else spp
-
-    if debug is not None:
-        # inspection views: forward-only, no custom_vjp (they are not
-        # loss surfaces) — one single-intersection kernel pass
-        run = _bvh_call(
-            scene.settings.max_ray_depth, kinds, scene.background.kind,
-            False, rows, interpret,
-            cb.n_sph_chunks, cb.n_tri_chunks, cb.sph_nodes, cb.tri_nodes,
-            n_vol_chunks=cb.n_vol_chunks, k_vol=cb.vol_nodes,
-            n_vol=scene.spheres.num_volumes,
-            mix=mix,
-            mv_spans=cb.mv_spans if scene.num_mesh_volumes else (),
-            debug=debug, d_mix=d_mix, m_pad=m_pad,
-        )
-        fparams, scal, tens = _bvh_prep(
-            scene, width, height, mix,
-            cb.mv_spans if scene.num_mesh_volumes else (), m_pad=m_pad)
-        rad_r, rad_g, rad_b = run(iparams, fparams, scal, tens,
-                                  ray_ids, px, py)
-        radiance = jnp.stack(
-            [rad_r.reshape(-1), rad_g.reshape(-1), rad_b.reshape(-1)],
-            axis=-1)[:n_rays]
-        radiance = jnp.clip(radiance, 0.0, scene.settings.clamp_indirect)
-        return radiance.reshape(p, n_local, 3).mean(axis=1)
-
-    radiance_fn = _bvh_cvjp(
-        scene.settings.max_ray_depth, kinds, scene.background.kind,
-        scene.settings.mode == MODE_CLAY, rows, interpret,
-        cb.n_sph_chunks, cb.n_tri_chunks, cb.sph_nodes, cb.tri_nodes,
-        width, height, n_rays,
-        n_vol_chunks=cb.n_vol_chunks, k_vol=cb.vol_nodes,
-        n_vol=scene.spheres.num_volumes, gens=gens,
-        mix=mix,
-        mv_spans=cb.mv_spans if scene.num_mesh_volumes else (),
-        d_mix=d_mix, m_pad=m_pad,
-    )
-    radiance = radiance_fn(scene, iparams, ray_ids, px, py)
-    radiance = jnp.clip(radiance, 0.0, scene.settings.clamp_indirect)
-    return radiance.reshape(p, n_local, 3).mean(axis=1)
+    loss_fn = _mse_cvjp(_static_cfg(scene, kinds), n_pad, interpret, spp,
+                        spp_pad, float(scene.settings.clamp_indirect),
+                        block, num_warps, grad_block, grad_warps)
+    return loss_fn(fparams, tgt, wt, iparams, ray_ids, px, py)

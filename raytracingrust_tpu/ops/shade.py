@@ -2,10 +2,10 @@
 
 The reference's ``Material::scatter`` dynamic dispatch (lib/core/render.rs:40
 -> lib/materials.rs) becomes masked evaluation of every lobe with a one-hot
-blend over the material kind id — the wavefront stays fully dense on the VPU
+blend over the material kind id — the wavefront stays fully dense
 (SURVEY.md section 2.6, the expert-parallel analog).  All table lookups go
-through one-hot matmuls (utils.lookup) because small-table gathers lower to
-scalar loops on TPU.  Semantics are lifted lobe-by-lobe from lib/materials.rs
+through one-hot matmuls (utils.lookup; ROADMAP A5 asks whether plain
+gathers are faster on the GPU).  Semantics are lifted lobe-by-lobe from lib/materials.rs
 and lib/volume.rs:75-88:
 
   * Lambertian — dir = normal + unit-sphere-surface sample, degenerate
@@ -75,7 +75,7 @@ def schlick(cosine, idx):
 
 
 def scatter(table: M.MaterialTable, mat_id, d_in, normal, front_face, u,
-            clay: bool = False, forced: dict | None = None):
+            clay: bool = False):
     """Evaluate all lobes, select by material kind.
 
     Args:
@@ -87,12 +87,6 @@ def scatter(table: M.MaterialTable, mat_id, d_in, normal, front_face, u,
          columns after the mix coins are (dir1, dir2, coin, radius).
       clay: Clay render mode — force Lambertian(0.8 gray)
             (lib/core/render.rs:41).
-      forced: optional recorded DISCRETE decisions overriding the
-         recomputed ones ({'metal_ok': (R,) bool, 'dielectric_reflect':
-         (R,) bool}) — the exact-replay path (diff/replay.py): the Pallas
-         record kernel stores each bounce's branch bits so the replayed
-         chain takes EXACTLY the primal's branches even where f32
-         recomputation would ulp-flip a borderline comparison.
 
     Returns (attenuation (R,3), new_dir (R,3), does_scatter (R,)).
     """
@@ -147,8 +141,6 @@ def scatter(table: M.MaterialTable, mat_id, d_in, normal, front_face, u,
             reflected + tgather(table.fuzz, mat_id)[..., None] * sphere_dir
         )
         metal_ok = vec.dot(metal_dir, normal) > 0.0
-        if forced is not None and forced.get("metal_ok") is not None:
-            metal_ok = forced["metal_ok"]
         lobe(M.METAL, jnp.where(metal_ok[..., None], albedo, black),
              metal_dir, metal_ok)
 
@@ -167,9 +159,6 @@ def scatter(table: M.MaterialTable, mat_id, d_in, normal, front_face, u,
         choose_reflect = cannot_refract | (
             schlick(cos_theta, ratio) > u_coin
         )
-        if forced is not None and \
-                forced.get("dielectric_reflect") is not None:
-            choose_reflect = forced["dielectric_reflect"]
         diel_dir = jnp.where(
             choose_reflect[..., None],
             vec.reflect(ud, normal),

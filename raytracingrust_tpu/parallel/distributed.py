@@ -1,24 +1,25 @@
 """Multi-host rendering + shard_map collectives.
 
 The reference is single-process shared memory (SURVEY.md section 2.6: "no
-sockets/MPI/NCCL").  This module is the TPU-native distributed layer it never
-had:
+sockets/MPI/NCCL").  This module is the distributed layer it never had:
 
-  * :func:`initialize` — per-host ``jax.distributed.initialize`` (DCN
-    coordination; a no-op when single-process or already initialized);
+  * :func:`initialize` — per-host ``jax.distributed.initialize`` (a no-op
+    when single-process or already initialized);
   * :func:`render_spp_sharded` — a 2-D ``(rays, spp)`` mesh where the
     sample-per-pixel axis is sharded too, and the sample mean is a real
-    ``psum`` collective riding ICI inside ``shard_map``.  This is the right
+    ``psum`` collective (NCCL over NVLink on a GPU host) inside
+    ``shard_map``.  This is the right
     decomposition for the reference's interactive envelope (spp up to 10,000
     at fixed resolution, src/gui.rs:222): pixels alone stop scaling, samples
     never do;
   * :func:`render_multihost` — process-local tiling: each host generates only
     ITS pixel ids (no broadcast — camera and scene are replicated), renders
     its shard under a global jit, and the full frame is assembled on every
-    host with ``process_allgather`` (the DCN edge).
+    host with ``process_allgather``.
 
 RNG is counter-based over global (pixel, sample) ids, so every decomposition
-here is bitwise identical to the single-chip render (tests/test_distributed.py).
+here is bitwise identical to the single-device render
+(tests/test_distributed.py).
 """
 
 from __future__ import annotations
@@ -44,13 +45,14 @@ def initialize(coordinator_address: str | None = None,
                process_id: int | None = None) -> bool:
     """Per-host distributed init (call once, before device use).
 
-    Arguments default to the standard JAX env vars / TPU metadata, so on a
-    real pod slice ``initialize()`` with no arguments does the right thing.
-    Returns True when a multi-process runtime was initialized, False for the
-    single-process no-op (local runs, CPU tests, the benchmark driver).
+    Nothing discovers a cluster by itself: pass ``coordinator_address``
+    (or set ``JAX_COORDINATOR_ADDRESS``), ``num_processes`` and
+    ``process_id``.  Returns True when a multi-process runtime was
+    initialized, False for the single-process no-op (local runs, CPU
+    tests, the benchmark).
     """
     explicit = coordinator_address or os.environ.get("JAX_COORDINATOR_ADDRESS")
-    if not explicit and not os.environ.get("TPU_WORKER_HOSTNAMES"):
+    if not explicit:
         return False  # single process: nothing to coordinate
     try:
         jax.distributed.initialize(
@@ -80,15 +82,13 @@ def render_spp_sharded(scene: Scene, width: int, height: int, *,
     """Render with BOTH pixels and samples sharded -> (H, W, 3) f32.
 
     Inside shard_map each device traces its (pixel tile x sample slice)
-    block; the spp mean is `psum / spp` over the "spp" mesh axis — an ICI
+    block; the spp mean is `psum / spp` over the "spp" mesh axis — an
     all-reduce, the collective the reference's rayon pool never needed
     (SURVEY.md 2.6 "Communication backend").
 
     Engine-aware through :func:`..render.render.make_pixel_radiance`: each
-    shard runs whatever engine the single-chip path would — the brute
-    megakernel OR the packet-traversal BVH kernel (global ray ids keep the
-    RNG decomposition-invariant), so the 2-D decomposition scales the fast
-    kernels, not the XLA fallback.
+    shard runs whatever engine the single-device path would (global ray
+    ids keep the RNG decomposition-invariant).
     """
     from ..render.render import make_pixel_radiance
 
@@ -139,12 +139,10 @@ def render_multihost(scene: Scene, width: int, height: int, *,
     """Every-host full-frame render under multi-process JAX -> (H, W, 3) f32.
 
     Each process feeds only its local shard of the pixel-id axis (addressable
-    devices), jit runs with global-array semantics (collectives ride ICI
-    within a slice, DCN across), and the frame is allgathered back to every
-    host.  Under a single process this degrades to the plain sharded render.
-    Engine-aware: each shard runs the engine the single-chip path would
-    (brute megakernel / packet-traversal BVH kernel / XLA), so multi-chip
-    rendering of BVH-class scenes scales the fast kernel.
+    devices), jit runs with global-array semantics, and the frame is
+    allgathered back to every host.  Under a single process this degrades
+    to the plain sharded render.  Engine-aware: each shard runs the engine
+    the single-device path would (sphere kernel or XLA).
     """
     devices = jax.devices()  # global, all processes
     mesh = Mesh(np.asarray(devices), (RAY_AXIS,))

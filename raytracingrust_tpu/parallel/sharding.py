@@ -1,16 +1,18 @@
-"""Multi-chip rendering: rays sharded over a device mesh.
+"""Multi-device rendering: rays sharded over a device mesh.
 
 The reference's parallelism is a rayon thread pool fanning one task per pixel
-on shared memory (lib/core/render.rs:113-126).  The TPU-native equivalent
-(SURVEY.md section 2.6): shard the RAY axis across a ``jax.sharding.Mesh``,
-replicate the scene (BVH + primitives + materials — they are read-only, the
-analog of rayon's ``&Scene``), and let each chip trace its own pixel slice.
+on shared memory (lib/core/render.rs:113-126).  The device equivalent
+(SURVEY.md section 2.6): shard the RAY axis across a 1-D
+``jax.sharding.Mesh`` over every device (the GPUs of one host are joined
+all to all by NVLink, so the mesh follows the algorithm alone), replicate
+the scene (BVH + primitives + materials — they are read-only, the analog
+of rayon's ``&Scene``), and let each device trace its own pixel slice.
 
 Collectives:
   * forward — none needed per se (the image tiles are disjoint); the output
     is gathered only at the host edge.
   * backward (inverse rendering) — scene-parameter gradients are partial sums
-    per chip; jax.grad of the pjit'd loss inserts the psum over ICI
+    per device; jax.grad of the pjit'd loss inserts the psum over NVLink
     automatically because the params are replicated.
 
 Everything goes through ``jax.jit`` with explicit in/out shardings (pjit);
@@ -57,10 +59,9 @@ def render_linear_sharded(scene: Scene, width: int, height: int, *,
     bitwise identical for ANY mesh size (shard-invariance test in
     tests/test_sharding.py).
 
-    Each shard runs the same engine the single-chip path would pick
-    (render.make_pixel_radiance): on TPU the brute megakernel OR the
-    packet-traversal BVH kernel executes per device inside shard_map, so
-    multi-chip scaling is over the fast kernels, not the XLA fallback.
+    Each shard runs the same engine the single-device path would pick
+    (render.make_pixel_radiance): on GPUs the sphere kernel executes per
+    device inside shard_map when the scene qualifies.
     """
     from ..render.render import make_pixel_radiance
 
@@ -78,12 +79,15 @@ def render_linear_sharded(scene: Scene, width: int, height: int, *,
     pixel_ids = jax.device_put(pixel_ids, sharding)
     scene = replicate_scene(scene, mesh)
 
-    if resolved in ("pallas", "pallas_bvh"):
+    if resolved == "pallas":
         fn = jax.jit(jax.shard_map(
             lambda scene, ids, key: radiance_fn(scene, ids, key),
             mesh=mesh,
             in_specs=(P(), P(RAY_AXIS), P()),
             out_specs=P(RAY_AXIS),
+            # pallas_call outputs carry no vma annotation; the shards
+            # never exchange data
+            check_vma=False,
         ))
     else:
         fn = jax.jit(

@@ -8,8 +8,9 @@ iterative ``lax.scan`` over bounce depth on a dense wavefront of rays:
                                       material -> its attenuation)
     depth cutoff -> contributes 0    (depth >= max_ray_depth returns black)
 
-Dead rays stay in their lanes with masked updates — TPU lanes want identical
-control flow; compaction happens at the Pallas layer, not here.  The scan has
+Dead rays stay in their lanes with masked updates — every ray of the
+wavefront runs the same ops; the sphere kernel (ops/pallas_megakernel.py)
+exits blocks of dead rays early instead.  The scan has
 a static trip count so reverse-mode AD works (a while_loop would be faster on
 early termination but is not differentiable).
 
@@ -21,17 +22,8 @@ throughput chain; sampled directions and discrete choices are detached
 
 from __future__ import annotations
 
-import os
-from functools import partial
-
 import jax
 import jax.numpy as jnp
-
-# Performance-ablation knobs (diagnostic only; see docs/performance.md):
-#   RTRT_ABLATE_RNG=1    replace per-bounce uniform draws with constants
-#   RTRT_ABLATE_SHADE=1  replace material shading with fixed lambertian
-_ABLATE_RNG = os.environ.get("RTRT_ABLATE_RNG") == "1"
-_ABLATE_SHADE = os.environ.get("RTRT_ABLATE_SHADE") == "1"
 
 from ..models import scene as S
 from ..ops import shade as shade_ops
@@ -54,8 +46,9 @@ def nee_stream(b, max_depth):
     return 1 + max_depth + b
 
 
-# Below this primitive count the dense matmul intersector beats lockstep
-# BVH traversal on TPU (gather-free, MXU-resident) — results are equivalent
+# Below this primitive count the dense matmul intersector is used instead
+# of lockstep BVH traversal (ROADMAP A4: re-measure the threshold on the
+# GPU) — results are equivalent
 # (tests/test_bvh.py), so honoring enable_bvh_tree only matters at scale.
 BRUTE_FORCE_THRESHOLD = 256
 
@@ -117,10 +110,7 @@ def trace_paths(scene: S.Scene, o, d, key, ray_ids):
 
     def bounce(carry, b):
         o, d, throughput, radiance, alive, mis_pdf = carry
-        if _ABLATE_RNG:
-            u = jnp.full((o.shape[0], n_uniforms), 0.5)
-        else:
-            u = rng.ray_uniforms(key, ray_ids, bounce_stream(b), n_uniforms)
+        u = rng.ray_uniforms(key, ray_ids, bounce_stream(b), n_uniforms)
         u_vol = u[:, n_shade:]
         hit = closest_hit(scene, o, d, u_vol)
 
@@ -145,7 +135,7 @@ def trace_paths(scene: S.Scene, o, d, key, ray_ids):
         atten, new_dir, scatters = shade_ops.scatter(
             scene.materials, mat_id, d, hit.normal, hit.front_face,
             u[:, :n_shade],
-            clay=clay or _ABLATE_SHADE,
+            clay=clay,
         )
         # Reparameterized path gradients: sampled directions are SMOOTH
         # functions of the parameters given fixed uniforms (metal dir in
@@ -210,27 +200,17 @@ def trace_paths(scene: S.Scene, o, d, key, ray_ids):
         jnp.zeros(o.shape[:-1]),       # mis_pdf (0 = no MIS for primaries)
     )
     # Unrolling the bounce chain lets XLA fuse across bounces instead of
-    # materializing the full wavefront carry (~100 MB at 2M rays) in HBM per
-    # iteration — profiling showed carry copies are ~90% of runtime
-    # (docs/performance.md).  Deep chains (mesh bench runs depth 50) keep the
-    # scan: the unrolled graph would take minutes to compile for little gain.
-    # Knobs: RTRT_SCAN_UNROLL=0 forces scan, =1 forces unroll.
-    knob = os.environ.get("RTRT_SCAN_UNROLL")
-    if knob is not None:
-        unroll = knob != "0"
-    else:
-        unroll = settings.max_ray_depth <= 12
-    body = bounce
-    if os.environ.get("RTRT_REMAT") == "1":
-        body = jax.checkpoint(bounce, static_argnums=())
-    if unroll:
+    # materializing the full wavefront carry in device memory per
+    # iteration.  Deep chains (the mesh bench runs depth 50) keep the scan:
+    # the unrolled graph would take minutes to compile for little gain.
+    if settings.max_ray_depth <= 12:
         carry = init
         for b in range(settings.max_ray_depth):
-            carry, _ = body(carry, b)
+            carry, _ = bounce(carry, b)
         radiance = carry[3]
     else:
         carry, _ = jax.lax.scan(
-            body, init, jnp.arange(settings.max_ray_depth)
+            bounce, init, jnp.arange(settings.max_ray_depth)
         )
         radiance = carry[3]
     # rays still alive after max_ray_depth bounces contribute black

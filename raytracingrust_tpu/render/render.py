@@ -1,6 +1,6 @@
 """Render driver: pixel wavefront generation, sample accumulation, tiling.
 
-TPU-native replacement for ``render()`` (lib/core/render.rs:61-127).  The
+The replacement for ``render()`` (lib/core/render.rs:61-127).  The
 rayon per-pixel fan-out becomes a dense ray wavefront: the pixel and
 sample-per-pixel axes are FOLDED INTO ONE ray batch dimension (samples are
 embarrassingly parallel — the reference loops them sequentially per pixel,
@@ -20,7 +20,6 @@ intersector materializes an (R, N) t-matrix per bounce).
 
 from __future__ import annotations
 
-import functools
 import math
 from functools import partial
 
@@ -36,7 +35,7 @@ from .integrator import JITTER_STREAM, trace_paths
 def default_tile_rays(scene: Scene) -> int:
     """Rays per lax.map tile: as large as the brute-force (R, N) t-matrix
     allows (target ~256 MB of intermediates), clamped to [2^13, 2^20].  Big
-    tiles amortize per-step overhead — TPUs want fat, few dispatches."""
+    tiles amortize per-step overhead."""
     n = max(scene.num_primitives, 1)
     budget_elems = 1 << 26
     return int(min(max(budget_elems // n, 8192), 1 << 20))
@@ -103,197 +102,85 @@ def _render_tiled(scene: Scene, width: int, height: int, tile_pixels: int,
 
 
 @partial(jax.jit,
-         static_argnames=("width", "height", "sphere_kinds", "tri_kinds",
-                          "interpret"))
+         static_argnames=("width", "height", "kinds", "interpret"))
 def _render_pallas(scene: Scene, width: int, height: int, iparams,
-                   sphere_kinds: tuple, tri_kinds: tuple, interpret: bool):
+                   kinds: tuple, interpret: bool):
     from ..ops.pallas_megakernel import pixel_radiance_pallas
 
     pixel_ids = jnp.arange(width * height, dtype=jnp.int32)
     mean = pixel_radiance_pallas(scene, pixel_ids, width, height, iparams,
-                                 sphere_kinds=sphere_kinds,
-                                 tri_kinds=tri_kinds,
-                                 interpret=interpret)
+                                 kinds=kinds, interpret=interpret)
     return mean.reshape(height, width, 3)
 
 
-@partial(jax.jit,
-         static_argnames=("width", "height", "kinds", "interpret",
-                          "mix_cfg"))
-def _render_pallas_bvh(scene: Scene, width: int, height: int, iparams,
-                       kinds: tuple, interpret: bool,
-                       mix_cfg: tuple | None = None):
-    from ..ops.pallas_megakernel import pixel_radiance_pallas_bvh
+def resolve_engine(scene: Scene, engine: str = "auto", *,
+                   use: str = "render") -> tuple[str, bool]:
+    """-> (engine, interpret): the one place the platform picks an engine.
 
-    # TILE-MAJOR ray->block assignment (r5, VERDICT r4 #3): the packet
-    # traversal descends when ANY of a block's 2048 rays touches a node,
-    # so raster order (eight 256x1 strips per block) drags every lane
-    # through a wide union of subtrees.  16x16 tiles give each block
-    # compact frusta — MEASURED on v5e: 1.37x on house.obj (9,153 tris),
-    # 1.21x on a 512-sphere grid, 1.00x on monkey-d50 (the gens-scheduled
-    # deep chain is secondary-bounce-bound).  Pure scheduling: the RNG is
-    # keyed by the TRUE pixel id riding with each ray, so results are
-    # BITWISE identical to raster order (scripts note in
-    # docs/performance.md).
-    perm, inv = _tile_order(width, height)
-    mean = pixel_radiance_pallas_bvh(scene, jnp.asarray(perm), width,
-                                     height, iparams, kinds=kinds,
-                                     interpret=interpret, mix_cfg=mix_cfg)
-    return mean[jnp.asarray(inv)].reshape(height, width, 3)
+    ``use`` is "render" (a forward image, possibly differentiated) or
+    "fit" (a loss under ``value_and_grad``; the kernel's grad envelope).
 
-
-@functools.lru_cache(maxsize=32)
-def _tile_order(width: int, height: int, t: int = 16):
-    """(perm, inverse) pixel-id orderings: perm lists ids tile-by-tile."""
-    ids = np.arange(width * height, dtype=np.int32).reshape(height, width)
-    tiles = [ids[ty:ty + t, tx:tx + t].reshape(-1)
-             for ty in range(0, height, t) for tx in range(0, width, t)]
-    perm = np.concatenate(tiles)
-    inv = np.empty_like(perm)
-    inv[perm] = np.arange(perm.size, dtype=np.int32)
-    return perm, inv
-
-
-# Real-chip triangle budget for the brute kernel's auto-dispatch: the
-# 8-chunk case (4,096 tris, depth 6) was MEASURED to exceed the default
-# scoped-VMEM limit at compile (47.9 MB vs 16 MB — the per-chunk
-# (4*TB, 256) matmul intermediates), so mid-size triangle scenes route to
-# the packet-traversal BVH kernel instead (house.obj-class scenes measured
-# 2.1M rays/s there, docs/performance.md).  supports() itself keeps the
-# larger semantic envelope: interpret-mode tests and users who force
-# engine="pallas" (which fails loudly at compile, never silently).
-TPU_MAX_BRUTE_TRIS = 1024
-
-# Env-importance-sampling dispatch threshold (r4, measured on v5e at
-# 128x128 spp8): the XLA integrator's MIS estimator beats the
-# record+occlusion+replay hybrid while its DENSE matmul intersector
-# applies (3 spheres: 3.5M vs 2.8M rays/s; 100: 2.3M vs 1.8M) and
-# collapses past its dense/BVH boundary (384 spheres: 0.025M vs the
-# hybrid's 1.67M = 65x).  The boundary IS the integrator's own
-# dense-vs-BVH switch, so it is imported, not copied — retuning one
-# retunes the other.
-from .integrator import BRUTE_FORCE_THRESHOLD as TPU_ENV_IS_MIN_PRIMS
-
-
-def env_is_small(scene: Scene) -> bool:
-    """True when an env-importance-sampling scene should keep the XLA
-    integrator (shared by select_engine and diff.grad.make_loss so the
-    forward and fit policies cannot drift)."""
-    from ..ops.pallas_megakernel import _env_is_active
-
-    return (_env_is_active(scene)
-            and scene.num_primitives <= TPU_ENV_IS_MIN_PRIMS)
-
-
-def select_engine(scene: Scene, engine: str) -> str:
-    """Resolve "auto" -> the MEASURED-fastest applicable engine on this
-    backend (scripts/exp_dispatch.py, v5e steady-state):
-
-    * sphere-only scenes with a chain short enough to unroll ->  brute
-      megakernel (468M rays/s on benchmark.json — nothing else is close);
-    * ANY triangles, or a deep chain (> UNROLL_MAX_DEPTH) -> the
-      generation-scheduled packet-traversal BVH kernel.  Triangle configs
-      force the brute kernel onto its while_loop chain where it loses at
-      EVERY size measured (967 tris d50: 0.64M vs 7.78M = 12.2x; d6:
-      3.9M vs 7.8M; even 2 tris + 4 spheres: 14.9M vs 15.3M), and deep
-      sphere chains lose the unroll + gain generations (simple.json d50:
-      11.3M vs 15.3M);
-    * brute kernel as fallback for scenes the BVH kernel rejects (no
-      cbvh built, skymap debug modes) within its own measured-safe
-      envelope;
-    * env-importance-sampling scenes: the XLA MIS estimator below the
-      dense-intersector boundary (TPU_ENV_IS_MIN_PRIMS), the packet
-      path's record+occlusion+replay hybrid above it (65x at 384
-      spheres);
-    * XLA wavefront for everything else.
-
-    Explicit engine names pass through.  "auto" picks a Pallas engine only
-    on real TPUs — in interpret mode on CPU the kernels are correctness
-    tools, not fast paths.
+    * "xla" always passes through;
+    * "pallas" runs the sphere kernel compiled for the GPU, or in the
+      Pallas interpreter on the CPU (the tests); any other platform, or a
+      scene outside the kernel's envelope, raises;
+    * "auto" picks the kernel only on a GPU and only within its envelope
+      for the use, where it beat the XLA engine on an H100 (PERF.md,
+      "Findings").  Everything else runs on XLA.
     """
-    if engine != "auto":
-        return engine
-    from ..ops.pallas_megakernel import (UNROLL_MAX_DEPTH, supports_bvh,
-                                         supports_fwd)
+    from ..ops import pallas_megakernel as PK
 
-    if jax.devices()[0].platform == "cpu":
-        return "xla"
-    if env_is_small(scene):
-        # small env-IS scenes: the XLA MIS estimator with its dense
-        # intersector is the measured winner (TPU_ENV_IS_MIN_PRIMS note)
-        return "xla"
-    brute_ok = (supports_fwd(scene)
-                and len(scene.triangles) <= TPU_MAX_BRUTE_TRIS)
-    fast_chain = (len(scene.triangles) == 0
-                  and scene.settings.max_ray_depth <= UNROLL_MAX_DEPTH)
-    if brute_ok and fast_chain:
-        return "pallas"
-    if supports_bvh(scene):
-        return "pallas_bvh"
-    if brute_ok:
-        # e.g. no cbvh built (nested mixes ride the BVH kernel's
-        # resolution chain since r5); the brute kernel
-        # was MEASURED to OOM scoped VMEM at compile above
-        # TPU_MAX_BRUTE_TRIS, so auto never selects a configuration known
-        # to fail (explicit engine="pallas" still fails loudly at compile)
-        return "pallas"
-    return "xla"
-
-
-def use_pallas(scene: Scene, engine: str) -> bool:
-    """True when the (differentiable) brute-force megakernel will be used."""
+    platform = jax.devices()[0].platform
+    fits = PK.supports_grad if use == "fit" else PK.supports
     if engine == "xla":
-        return False
+        return "xla", False
     if engine == "pallas":
-        return True
-    return select_engine(scene, engine) == "pallas"
+        if platform not in ("gpu", "cpu"):
+            raise ValueError(
+                f"engine='pallas' needs a GPU (or the CPU interpreter); "
+                f"the platform is {platform!r}")
+        if not fits(scene):
+            raise ValueError("scene is outside the sphere kernel's envelope "
+                             "(ops/pallas_megakernel.supports); use "
+                             "engine='xla'")
+        return "pallas", platform == "cpu"
+    if engine != "auto":
+        raise ValueError(f"unknown engine {engine!r}")
+    if platform == "gpu" and fits(scene):
+        return "pallas", False
+    return "xla", False
+
+
+def select_engine(scene: Scene, engine: str, *, use: str = "render") -> str:
+    """The engine :func:`resolve_engine` picks, by name."""
+    return resolve_engine(scene, engine, use=use)[0]
 
 
 def make_pixel_radiance(scene: Scene, width: int, height: int,
-                        engine: str = "auto"):
+                        engine: str = "auto", *, use: str = "render"):
     """Engine-resolved per-pixel radiance closure for sharded callers.
 
     Resolves ``engine`` against the CONCRETE scene (static kind tuples are
     extracted here, outside any trace) and returns ``(fn, resolved)`` where
     ``fn(scene, pixel_ids, key, sample_offset=0, n_samples=None)`` computes
     the (P, 3) mean clamped radiance over the LOCAL sample slice and is
-    safe to call with a traced scene inside jit / shard_map.  This is what
-    makes the distributed layer engine-aware: every shard runs the same
-    fast kernel the single-chip path would (parallel/distributed.py).
+    safe to call with a traced scene inside jit / shard_map.  Every shard
+    runs the engine the single-device path would (parallel/distributed.py).
     """
-    resolved = select_engine(scene, engine)
-    interpret = jax.devices()[0].platform == "cpu"
+    resolved, interpret = resolve_engine(scene, engine, use=use)
 
     if resolved == "pallas":
-        from ..ops.pallas_megakernel import (_sphere_kinds, _tri_kinds,
-                                             pixel_radiance_pallas)
+        from ..ops.pallas_megakernel import (pixel_radiance_pallas,
+                                             sphere_kinds)
 
-        skinds = _sphere_kinds(scene)
-        tkinds = _tri_kinds(scene)
+        kinds = sphere_kinds(scene)
 
         def fn(scene, pixel_ids, key, sample_offset=0, n_samples=None):
             return pixel_radiance_pallas(
                 scene, pixel_ids, width, height,
-                jnp.asarray(key).astype(jnp.int32),
-                sphere_kinds=skinds, tri_kinds=tkinds, interpret=interpret,
-                sample_offset=sample_offset, n_samples=n_samples)
-
-        return fn, resolved
-
-    if resolved == "pallas_bvh":
-        from ..ops.pallas_megakernel import (_bvh_kinds, _mixn_cfg,
-                                             pixel_radiance_pallas_bvh)
-
-        kinds = _bvh_kinds(scene)
-        mix_cfg = _mixn_cfg(scene)
-
-        def fn(scene, pixel_ids, key, sample_offset=0, n_samples=None):
-            return pixel_radiance_pallas_bvh(
-                scene, pixel_ids, width, height,
-                jnp.asarray(key).astype(jnp.int32),
-                kinds=kinds, interpret=interpret,
-                sample_offset=sample_offset, n_samples=n_samples,
-                mix_cfg=mix_cfg)
+                jnp.asarray(key).astype(jnp.int32), kinds=kinds,
+                interpret=interpret, sample_offset=sample_offset,
+                n_samples=n_samples)
 
         return fn, resolved
 
@@ -316,9 +203,9 @@ def render_linear(scene: Scene, width: int, height: int, *, seed: int = 0,
     This is the differentiable quantity — inverse rendering optimizes
     against it (gamma/u8 quantization stay out of the loss).
 
-    ``engine``: "auto" (Pallas megakernel when the scene qualifies and a TPU
-    is present, else XLA), "pallas", or "xla".  The engines consume identical
-    RNG streams; images agree to f32 arithmetic-order noise.
+    ``engine``: "auto", "pallas" or "xla" (:func:`resolve_engine`).  The
+    engines consume identical RNG streams; images agree to f32
+    arithmetic-order noise.
 
     ``key``: optional (2,) threefry key words (rng.base_key) overriding
     ``seed``.  Because the key is an ARRAY input it may be traced — per-step
@@ -327,22 +214,12 @@ def render_linear(scene: Scene, width: int, height: int, *, seed: int = 0,
     if key is None:
         key = rng.base_key(seed)
     key = jnp.asarray(key)
-    resolved = select_engine(scene, engine)
-    interpret = jax.devices()[0].platform == "cpu"
+    resolved, interpret = resolve_engine(scene, engine)
     if resolved == "pallas":
-        from ..ops.pallas_megakernel import _sphere_kinds, _tri_kinds
+        from ..ops.pallas_megakernel import sphere_kinds
 
-        return _render_pallas(scene, width, height,
-                              key.astype(jnp.int32),
-                              _sphere_kinds(scene), _tri_kinds(scene),
-                              interpret)
-    if resolved == "pallas_bvh":
-        from ..ops.pallas_megakernel import _bvh_kinds, _mixn_cfg
-
-        return _render_pallas_bvh(scene, width, height,
-                                  key.astype(jnp.int32),
-                                  _bvh_kinds(scene), interpret,
-                                  _mixn_cfg(scene))
+        return _render_pallas(scene, width, height, key.astype(jnp.int32),
+                              sphere_kinds(scene), interpret)
     spp = scene.settings.samples_per_pixel
     if tile_rays is None:
         tile_rays = default_tile_rays(scene)

@@ -1,8 +1,8 @@
-"""Table lookups tuned for TPU.
+"""Table lookups as one-hot matmuls.
 
-A dynamic gather from a SMALL table lowers to a slow scalar loop on TPU; the
-same lookup phrased as one-hot x table is a dense matmul the MXU eats for
-free (and its transpose — the VJP — is the exact scatter-add a gather would
+A lookup from a SMALL table is phrased as one-hot x table, a dense matmul
+(a workaround for slow small gathers on the machine this was first written
+for; on the GPU a gather is one load per ray — ROADMAP A5 measures it) (and its transpose — the VJP — is the exact scatter-add a gather would
 need).  Above the threshold a real gather wins on FLOPs; below it, one-hot
 wins on latency by orders of magnitude.
 """
@@ -17,7 +17,7 @@ ONE_HOT_MAX = 128
 
 
 def tgather(table, ids):
-    """``table[ids]`` with TPU-friendly lowering.
+    """``table[ids]`` as a one-hot matmul for small tables.
 
     table: (M,) or (M, K) array (float or int); ids: (...,) int32.
     Integer tables round-trip exactly through f32 for values < 2^24.

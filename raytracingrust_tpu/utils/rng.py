@@ -15,8 +15,8 @@ module's cipher.
 This layout costs ceil(n/2) ciphers per (ray, stream) — the jax.random
 equivalent (fold_in per ray + fold_in per stream + one cipher per element of
 ``uniform(key, (n,))``) costs n + 2.  The cipher is most of the per-bounce
-VPU work, so the counter layout AND the 13-round strength (see
-THREEFRY_ROUNDS) are direct rays/s wins (docs/performance.md).
+arithmetic, so the counter layout AND the 13-round strength (see
+THREEFRY_ROUNDS) are direct rays/s wins.
 
 Distribution parity with the reference samplers (lib/utils/sample.rs):
   * ``sample_unit_sphere_surface`` — rejection-sample a cube, keep |v|<=1,
@@ -44,8 +44,8 @@ CIPHER_BLOCK = 256
 # Cipher strength: Threefry-2x32 with 13 rounds — Random123's published
 # reduced-round variant (Salmon et al., SC'11: 13 rounds passes the full
 # BigCrush battery; 20 is the crypto-margin default jax.random uses).  The
-# cipher is the dominant per-bounce VPU cost in the megakernel
-# (docs/performance.md), and a Monte-Carlo renderer needs statistical
+# cipher is the dominant per-bounce cost in the sphere kernel, and a
+# Monte-Carlo renderer needs statistical
 # quality, not a security margin — 13 rounds is a direct rays/s win on
 # every engine.  Both engines share THIS function, so cross-engine
 # bit-parity is preserved; goldens were regenerated with it.
@@ -118,7 +118,7 @@ def unit_sphere_surface(u1, u2):
 
     Same distribution as ``sample_unit_sphere_surface``
     (lib/utils/sample.rs:71-79) without the rejection loop (data-dependent
-    loops do not vectorize on TPU lanes).
+    loops do not vectorize over a wavefront).
     """
     z = 1.0 - 2.0 * u1
     r = jnp.sqrt(jnp.maximum(0.0, 1.0 - z * z))
@@ -128,9 +128,9 @@ def unit_sphere_surface(u1, u2):
 
 def cbrt01(u):
     """cbrt on [0,1) as exp(log(u)/3) — the ONE cube-root implementation
-    shared by the XLA shader and the Pallas megakernel (lax.cbrt has no
-    Mosaic lowering; using the same formula in both engines keeps their
-    isotropic scatter directions bit-identical).  The clamp maps u == 0 to
+    shared by the XLA shader and the sphere kernel (using the same
+    formula in both engines keeps their isotropic scatter directions
+    bit-identical).  The clamp maps u == 0 to
     ~exp(-29) instead of 0 — a 2^-32-probability draw displaced by 1e-13."""
     return jnp.exp(jnp.log(jnp.maximum(u, 1e-38)) * (1.0 / 3.0))
 

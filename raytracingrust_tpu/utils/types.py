@@ -2,11 +2,11 @@
 
 The reference tracer is entirely f32 (``lib/utils/types.rs:4-8`` defines
 ``Float = f32`` and cgmath f32 vectors).  We keep f32 as the canonical compute
-dtype: TPU VPU lanes are f32-native and the intersection math needs f32
+dtype: the intersection math needs f32
 precision (bf16 loses hits to catastrophic cancellation in the quadratic /
 Moller-Trumbore determinants).  bf16 is used only where it is safe
 (e.g. accumulation-free color math is still f32; matmul inputs stay f32 with
-HIGHEST precision so XLA keeps the MXU passes exact).
+HIGHEST precision so no matmul runs in a reduced format such as TF32).
 """
 
 from __future__ import annotations

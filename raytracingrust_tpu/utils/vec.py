@@ -1,9 +1,9 @@
 """Vector math over ``(..., 3)`` arrays.
 
-TPU-native replacement for the reference's cgmath-based scalar vector layer
+Batched replacement for the reference's cgmath-based scalar vector layer
 (``lib/utils/{vector,math}.rs``): every op is batched and shape-polymorphic so
-the integrator can work on whole ray wavefronts at once (VPU 8x128 lanes)
-instead of one ray at a time.
+the integrator can work on whole ray wavefronts at once instead of one
+ray at a time.
 """
 
 from __future__ import annotations

@@ -58,8 +58,8 @@ def _settings_schema() -> list[dict]:
         {"path": "settings.enable_bvh_tree", "label": "Enable BVH tree",
          "widget": "checkbox"},
         {"path": "settings.enable_multithreading",
-         "label": "Enable multithreading (schema parity; TPU is always "
-                  "data-parallel)", "widget": "checkbox"},
+         "label": "Enable multithreading (schema parity; the device is "
+                  "always data-parallel)", "widget": "checkbox"},
         {"path": "settings.env_importance_sampling",
          "label": "Env importance sampling (MIS vs the HDRI sky; "
                   "beyond-reference)", "widget": "checkbox"},

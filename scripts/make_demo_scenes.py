@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Generate the repo's demo scenes (scenes/*.json).
 
-Original content in the reference-compatible JSON schema — NOT copies of the
-reference's shipped scenes (those remain at /root/reference/scenes and are
-used directly by the parity tests).  Regenerate with:
+Original content in the reference-compatible JSON schema.  The benchmark
+scene and the ~100-sphere grid are written from raytracingrust_tpu/demo.py,
+which builds them in code.  Regenerate with:
 
     python scripts/make_demo_scenes.py
 """
@@ -15,7 +15,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import jax
 
-# scene authoring is host-side work; don't touch (or wait for) the TPU
+# scene authoring is host-side work
 jax.config.update("jax_platforms", "cpu")
 
 import numpy as np
@@ -31,6 +31,7 @@ from raytracingrust_tpu import (
     MixMaterial,
     RenderSettings,
     SceneBuilder,
+    demo,
 )
 
 OUT = os.path.join(os.path.dirname(__file__), "..", "scenes")
@@ -134,6 +135,8 @@ def bvh_stress(n_side=20):
 def main():
     os.makedirs(OUT, exist_ok=True)
     for name, builder in [
+        ("benchmark", demo.benchmark()),
+        ("sphere_grid", demo.sphere_grid()),
         ("cornell_spheres", cornell_spheres()),
         ("material_zoo", material_zoo()),
         ("bvh_stress", bvh_stress()),

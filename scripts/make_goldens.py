@@ -23,33 +23,25 @@ jax.config.update("jax_platforms", "cpu")
 
 import numpy as np
 
-REF = "/root/reference"
-OUT = os.path.join(os.path.dirname(__file__), "..", "tests", "goldens")
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+OUT = os.path.join(ROOT, "tests", "goldens")
 
 
 def golden_cases():
-    """name -> (scene, width, height, seed).  Small frames, fixed seeds."""
-    from raytracingrust_tpu import Camera, Lambertian, Mesh, RenderSettings, \
-        SceneBuilder
+    """name -> (scene, width, height, seed).  Small frames, fixed seeds.
+    Every scene is in the tree or generated from a seed."""
+    from raytracingrust_tpu import demo
     from raytracingrust_tpu.models.scene import load_scene
 
-    cases = {}
-    cases["benchmark"] = (
-        load_scene(os.path.join(REF, "scenes", "benchmark.json")), 32, 26, 0)
-    cases["simple"] = (
-        load_scene(os.path.join(REF, "scenes", "simple.json")), 24, 24, 1)
-    cases["bvh_stress"] = (
-        load_scene(os.path.join(
-            os.path.dirname(__file__), "..", "scenes", "bvh_stress.json")),
-        24, 20, 2)
+    def scene(name):
+        return load_scene(os.path.join(ROOT, "scenes", f"{name}.json"))
 
-    b = SceneBuilder()
-    b.camera = Camera.create((0, 0, 3), (0, 0, 0), (0, 1, 0), 40.0, 1.0)
-    b.settings = RenderSettings(samples_per_pixel=4, max_ray_depth=8)
-    m = b.add_material(Lambertian((0.7, 0.7, 0.7)))
-    b.add_mesh(Mesh.from_file(os.path.join(REF, "assets", "monkey.obj"), m))
-    cases["monkey"] = (b.build(with_bvh=True), 24, 24, 3)
-    return cases
+    return {
+        "benchmark": (scene("benchmark"), 32, 26, 0),
+        "sphere_grid": (scene("sphere_grid"), 24, 24, 1),
+        "bvh_stress": (scene("bvh_stress"), 24, 20, 2),
+        "mesh": (demo.mesh_scene().build(with_bvh=True), 24, 24, 3),
+    }
 
 
 def main():

@@ -2,13 +2,13 @@
 """Scaling-efficiency harness: rays/s at 1..N devices over the ray-sharded
 render path (BASELINE.md: >= 85% efficiency target).
 
-On this machine only ONE real TPU chip exists, so by default the harness
-runs on N virtual CPU devices (xla_force_host_platform_device_count) — that
-validates the sharding MECHANICS and measures partitioning overhead, not
-real ICI scaling (virtual devices share the same cores; ideal speedup is
-flat, and the efficiency number reported is throughput(N)/throughput(1),
-which on shared cores should stay near 1.0 = no partitioning overhead).
-On a real pod the same script reports true scaling.
+By default the harness runs on N virtual CPU devices
+(xla_force_host_platform_device_count) — that validates the sharding
+MECHANICS and measures partitioning overhead, not real scaling (virtual
+devices share the same cores; ideal speedup is flat, and the efficiency
+number reported is throughput(N)/throughput(1), which on shared cores
+should stay near 1.0 = no partitioning overhead).  With ``--platform ''``
+on a multi-GPU host the same script reports true scaling.
 
     python scripts/scaling_bench.py --devices 1 2 4 8
 """
@@ -52,10 +52,8 @@ def main():
         make_mesh, render_linear_sharded,
     )
 
-    ref = "/root/reference/scenes/benchmark.json"
-    path = ref if os.path.exists(ref) else os.path.join(
-        os.path.dirname(__file__), "..", "scenes", "cornell_spheres.json")
-    b = SceneBuilder.from_file(path)
+    b = SceneBuilder.from_file(os.path.join(
+        os.path.dirname(__file__), "..", "scenes", "benchmark.json"))
     b.settings = dataclasses.replace(
         b.settings, samples_per_pixel=args.spp, max_ray_depth=6,
         enable_bvh_tree=False,
@@ -88,7 +86,7 @@ def main():
         },
         "note": (
             "cpu virtual devices share cores: efficiency here = partitioning "
-            "overhead check (ideal ~1.0), not real ICI scaling"
+            "overhead check (ideal ~1.0), not real device scaling"
         ),
     }
     print(json.dumps(report, indent=2))

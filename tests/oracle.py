@@ -2,10 +2,10 @@
 
 A deliberately naive, per-ray recursive re-implementation of the reference
 algorithm (lib/core/render.rs trace_ray + calculate_pixel), used as the
-golden model for the TPU path.  Geometry, shading, and accumulation math are
+golden model for the wavefront engines.  Geometry, shading, and accumulation math are
 written independently (scalar NumPy, recursion, linear object scan — the
 shape of the Rust code, none of the matmul/wavefront machinery), so a bug in
-the TPU formulation cannot hide.
+the wavefront formulation cannot hide.
 
 The ONLY shared component is the uniform-random source
 (raytracingrust_tpu.utils.rng): both implementations consume identical

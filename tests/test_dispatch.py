@@ -1,12 +1,13 @@
-"""Engine auto-dispatch policy tests (VERDICT r3 #1/#3).
+"""The engine rule (render.resolve_engine).
 
-The policy constants come from v5e measurements (scripts/exp_dispatch.py;
-docs/performance.md "Engine dispatch policy").  Tests mock a TPU platform
-(CPU always resolves to "xla") and assert the MEASURED winner is chosen
-for each reference bench shape — most importantly that the depth-50 mesh
-bench (benches/mesh.rs:9-22) gets the generation-scheduled BVH kernel,
-which r3's dispatch missed.
+"auto" picks the Triton sphere kernel only on a GPU and only within the
+kernel's envelope for the use (renders, or fits with a bounded unrolled
+size); everything else runs on the XLA engine.  An explicit
+engine="pallas" interprets on the CPU (the tests) and raises on any other
+platform.  Tests fake the platform by monkeypatching ``jax.devices``.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -16,13 +17,19 @@ from raytracingrust_tpu import (Camera, Lambertian, Mesh, Metal,
 from raytracingrust_tpu.render import render as render_mod
 
 
-class _FakeTpu:
-    platform = "tpu"
+class _FakeDevice:
+    def __init__(self, platform):
+        self.platform = platform
+
+
+def _fake_platform(monkeypatch, platform):
+    monkeypatch.setattr(render_mod.jax, "devices",
+                        lambda *a: [_FakeDevice(platform)])
 
 
 @pytest.fixture()
-def on_tpu(monkeypatch):
-    monkeypatch.setattr(render_mod.jax, "devices", lambda: [_FakeTpu()])
+def on_gpu(monkeypatch):
+    _fake_platform(monkeypatch, "gpu")
 
 
 def sphere_scene(n=5, depth=6, with_bvh=True):
@@ -49,122 +56,132 @@ def tri_scene(depth=6):
 
 def test_cpu_always_xla():
     assert render_mod.select_engine(sphere_scene(), "auto") == "xla"
+    assert render_mod.select_engine(sphere_scene(), "auto",
+                                    use="fit") == "xla"
 
 
-def test_explicit_engine_passes_through(on_tpu):
+def test_explicit_engine_passes_through(on_gpu):
     assert render_mod.select_engine(sphere_scene(), "xla") == "xla"
     assert render_mod.select_engine(sphere_scene(), "pallas") == "pallas"
 
 
-def test_shallow_sphere_scene_takes_brute(on_tpu):
-    # benchmark.json / simple.json shape: the 468M rays/s unrolled path
-    assert render_mod.select_engine(sphere_scene(depth=6), "auto") \
-        == "pallas"
+def test_shallow_sphere_scene_takes_brute(on_gpu):
+    # the benchmark scene's class: the sphere kernel, compiled (not
+    # interpreted), for both the forward render and the fit
+    assert render_mod.resolve_engine(sphere_scene(depth=6)) == \
+        ("pallas", False)
+    assert render_mod.resolve_engine(sphere_scene(depth=6), use="fit") == \
+        ("pallas", False)
 
 
-def test_triangle_scene_takes_bvh_kernel(on_tpu):
-    # measured: the BVH kernel beats the brute kernel at EVERY triangle
-    # count (967 tris d6: 7.8M vs 3.9M; even 2 tris: 15.3M vs 14.9M)
-    assert render_mod.select_engine(tri_scene(depth=6), "auto") \
-        == "pallas_bvh"
+@pytest.mark.parametrize("n,depth,fit_engine", [
+    (5, 6, "pallas"), (5, 12, "pallas"), (10, 6, "pallas"),
+    (5, 13, "xla"), (11, 6, "xla"), (100, 6, "xla"),
+])
+def test_fit_envelope_bounds_unrolled_size(on_gpu, n, depth, fit_engine):
+    """Fits take the kernel while spheres x bounces <= MAX_GRAD_UNROLL
+    (the grad kernels' compile time grows faster than that product);
+    forward renders take it at any size inside the envelope."""
+    scene = sphere_scene(n=n, depth=depth)
+    assert render_mod.select_engine(scene, "auto") == "pallas"
+    assert render_mod.select_engine(scene, "auto", use="fit") == fit_engine
 
 
-def test_mesh_bench_shape_takes_bvh_kernel(on_tpu):
-    # THE round-3 miss: monkey.obj depth 50 (benches/mesh.rs) ran on the
-    # brute kernel with no compaction — 0.64M vs 7.78M rays/s (12.2x)
-    assert render_mod.select_engine(tri_scene(depth=50), "auto") \
-        == "pallas_bvh"
+def test_triangle_scene_takes_xla(on_gpu):
+    # triangles left the kernel; meshes run on the XLA engine's BVH
+    assert render_mod.select_engine(tri_scene(), "auto") == "xla"
+    assert render_mod.select_engine(tri_scene(), "auto", use="fit") == "xla"
 
 
-def test_deep_sphere_scene_takes_bvh_kernel(on_tpu):
-    # simple.json at depth 50: 11.3M (brute while_loop) vs 15.3M (bvh+gens)
-    assert render_mod.select_engine(sphere_scene(depth=50), "auto") \
-        == "pallas_bvh"
+def test_deep_chain_fit_takes_xla(on_gpu):
+    # the forward keeps its early-out while_loop at any depth; the grad
+    # kernels unroll, so deep fits run on XLA
+    deep = sphere_scene(depth=50)
+    assert render_mod.select_engine(deep, "auto") == "pallas"
+    assert render_mod.select_engine(deep, "auto", use="fit") == "xla"
+    with pytest.raises(ValueError, match="envelope"):
+        render_mod.resolve_engine(deep, "pallas", use="fit")
 
 
-def test_deep_scene_without_cbvh_falls_back_to_brute(on_tpu):
-    # no chunk tree built -> the BVH kernel is unavailable; the brute
-    # kernel (while_loop chain) still beats XLA
-    assert render_mod.select_engine(
-        sphere_scene(depth=50, with_bvh=False), "auto") == "pallas"
+def test_big_sphere_scene_takes_xla(on_gpu):
+    from raytracingrust_tpu.ops.pallas_megakernel import MAX_UNROLLED_SPHERES
+
+    big = sphere_scene(n=MAX_UNROLLED_SPHERES + 1)
+    assert render_mod.select_engine(big, "auto") == "xla"
 
 
-def test_env_is_dispatch(on_tpu):
-    # VERDICT r3 missing #2: the MIS/NEE env estimator must never be
-    # silently dropped.  r4 resolution: SMALL env-IS scenes keep the XLA
-    # integrator (the measured winner while its dense intersector
-    # applies); big ones take the record+occlusion+replay HYBRID on the
-    # packet path (65x at 384 spheres); the brute kernel (naive
-    # estimator only) always refuses.
-    import dataclasses
+def test_explicit_pallas_interprets_on_cpu():
+    assert render_mod.resolve_engine(sphere_scene(), "pallas") == \
+        ("pallas", True)
 
+
+@pytest.mark.parametrize("platform", ["rocm", "neuron"])
+def test_explicit_pallas_raises_off_gpu(monkeypatch, platform):
+    _fake_platform(monkeypatch, platform)
+    with pytest.raises(ValueError, match="needs a GPU"):
+        render_mod.resolve_engine(sphere_scene(), "pallas")
+    # auto never reaches the kernel there
+    assert render_mod.select_engine(sphere_scene(), "auto") == "xla"
+
+
+def test_explicit_pallas_rejects_unsupported_scene(on_gpu):
+    with pytest.raises(ValueError, match="envelope"):
+        render_mod.resolve_engine(tri_scene(), "pallas")
+
+
+def test_unknown_engine_raises():
+    with pytest.raises(ValueError, match="unknown engine"):
+        render_mod.resolve_engine(sphere_scene(), "packet")
+
+
+def test_env_is_dispatch(on_gpu):
+    # the kernel implements only the naive escape-lookup estimator: scenes
+    # that ask for the MIS environment sampler always run on XLA
     from raytracingrust_tpu.models.backgrounds import Background
 
-    def env_builder(n):
-        b = SceneBuilder()
-        b.camera = Camera.create((0, 0, 0), (0, 0, -1), (0, 1, 0),
-                                 90.0, 1.0)
-        b.settings = RenderSettings(samples_per_pixel=4, max_ray_depth=6,
-                                    env_importance_sampling=True)
-        m = b.add_material(Lambertian((0.5, 0.5, 0.5)))
-        for i in range(n):
-            b.add_sphere((float(i % 20), float(i // 20), -2), 0.3, m)
-        b.background = Background.skymap_from_array(
-            np.ones((8, 16, 3), np.float32))
-        return b
-
-    small = env_builder(1).build(with_bvh=True)
-    assert render_mod.select_engine(small, "auto") == "xla"
-
-    big = env_builder(300).build(with_bvh=True)
-    assert render_mod.select_engine(big, "auto") == "pallas_bvh"
-
-    from raytracingrust_tpu.ops.pallas_megakernel import (
-        pixel_radiance_pallas, supports, supports_bvh)
-
-    assert not supports(big) and supports_bvh(big)
-    # the brute kernel (naive estimator only) still fails LOUDLY
-    import jax.numpy as jnp
-
-    from raytracingrust_tpu.utils import rng
-    ip = rng.base_key(0).astype(jnp.int32)
-    pix = jnp.arange(4, dtype=jnp.int32)
-    with pytest.raises(ValueError, match="env_importance_sampling"):
-        pixel_radiance_pallas(small, pix, 2, 2, ip, interpret=True)
-
-    # no cbvh -> no hybrid -> the XLA integrator's estimator
-    big_bvhless = env_builder(300).build(with_bvh=False)
-    assert render_mod.select_engine(big_bvhless, "auto") == "xla"
-
-    # the SAME big scene without the flag keeps a kernel path
-    plain = dataclasses.replace(
-        big, settings=dataclasses.replace(
-            big.settings, env_importance_sampling=False))
-    assert render_mod.select_engine(plain, "auto") == "pallas_bvh"
+    b = SceneBuilder()
+    b.camera = Camera.create((0, 0, 0), (0, 0, -1), (0, 1, 0), 90.0, 1.0)
+    b.settings = RenderSettings(samples_per_pixel=4, max_ray_depth=6,
+                                env_importance_sampling=True)
+    m = b.add_material(Lambertian((0.5, 0.5, 0.5)))
+    b.add_sphere((0, 0, -2), 0.3, m)
+    b.background = Background.skymap_from_array(
+        np.ones((8, 16, 3), np.float32))
+    env = b.build(with_bvh=True)
+    assert render_mod.select_engine(env, "auto") == "xla"
+    with pytest.raises(ValueError, match="envelope"):
+        render_mod.resolve_engine(env, "pallas")
+    # the same scene without the flag is kernel-eligible (skymap misses
+    # are recorded and looked up after the kernel)
+    plain = dataclasses.replace(env, settings=dataclasses.replace(
+        env.settings, env_importance_sampling=False))
+    assert render_mod.select_engine(plain, "auto") == "pallas"
 
 
-def test_mix_scene_keeps_brute_kernel(on_tpu):
-    # the packet kernel rejects mixes; brute covers single-level mixes
+def test_mix_scene_keeps_brute_kernel(on_gpu):
+    # single-level mixes are inside the kernel; mix-of-mix is not
     b = SceneBuilder()
     b.camera = Camera.create((0, 0, 0), (0, 0, -1), (0, 1, 0), 90.0, 1.0)
     b.settings = RenderSettings(samples_per_pixel=4, max_ray_depth=6)
     m = b.add_material(MixMaterial(
         Lambertian((0.5, 0.5, 0.5)), Metal((0.9, 0.9, 0.9), 0.1), 0.5))
     b.add_sphere((0, 0, -2), 0.5, m)
-    scene = b.build(with_bvh=True)
-    assert render_mod.select_engine(scene, "auto") == "pallas"
+    assert render_mod.select_engine(b.build(), "auto") == "pallas"
+    nested = b.add_material(MixMaterial(
+        MixMaterial(Lambertian((0.1, 0.2, 0.3)), Metal((1, 1, 1), 0.0), 0.5),
+        Lambertian((0.5, 0.5, 0.5)), 0.5))
+    b.add_sphere((1, 0, -2), 0.5, nested)
+    assert render_mod.select_engine(b.build(), "auto") == "xla"
 
 
 def test_fused_mse_spp_gate():
-    """ANY spp <= 256 runs the fused render->MSE->grad kernel (r5,
-    VERDICT r4 missing #3): non-divisor spp pads each pixel's lane group
-    to the next power of two with zero-weight throwaway lanes.  The
-    reference DEFAULT spp=5 (lib/core/scene.rs:42-65) must (a) pass the
-    gate, (b) agree with the two-pass path near-exactly (real lanes keep
-    the global ray ids pixel*spp+s, so same winners + same uniforms), and
-    (c) agree with XLA to engine tolerance."""
-    import dataclasses
-
+    """ANY spp <= 256 runs the fused render->MSE->grad kernel: non-
+    power-of-two spp pads each pixel's ray group to the next power of two
+    with throwaway rays the loss ignores.  The reference DEFAULT spp=5
+    (lib/core/scene.rs:42-65) must (a) pass the gate, (b) agree with the
+    two-pass path near-exactly (real rays keep the global ray ids
+    pixel*spp+s, so same winners + same uniforms), and (c) agree with XLA
+    to engine tolerance."""
     import jax
     import jax.numpy as jnp
 
@@ -183,7 +200,7 @@ def test_fused_mse_spp_gate():
                                          samples_per_pixel=257))
     assert supports_fused_mse(s5)
     assert supports_fused_mse(s8)
-    assert not supports_fused_mse(s_big)  # a pixel group must fit a row
+    assert not supports_fused_mse(s_big)  # a pixel group must fit a block
 
     # spp=5 end to end: the FUSED kernel against the two-pass pallas loss
     # (same winners, same uniforms -> near-exact) and against XLA
@@ -201,16 +218,12 @@ def test_fused_mse_spp_gate():
     g_x = jax.value_and_grad(
         make_loss(s5, target, 8, 6, seed=0, engine="xla"))(params)
     # interpret-mode kernels are ulp-sensitive to the surrounding
-    # compilation (see test_fused_mse_loss_matches_twopass): borderline
-    # paths can flip between the fused and two-pass programs, so the
-    # engine-family tolerances apply (a 3-sphere controlled check agrees
-    # to 1e-6; hardware parity is asserted by bench.py's parity bit)
+    # compilation: borderline paths can flip between the fused and
+    # two-pass programs, so the engine-family tolerances apply
     np.testing.assert_allclose(float(g_f[0]), float(g_2[0]), rtol=3e-2)
     np.testing.assert_allclose(np.asarray(g_f[1]["albedo"]),
                                np.asarray(g_2[1]["albedo"]),
                                rtol=5e-2, atol=2e-3)
-    # the engines' scatter math differs at ulp level — borderline paths
-    # flip on a handful of rays (test_pallas_bvh.py tolerance family)
     np.testing.assert_allclose(float(g_f[0]), float(g_x[0]), rtol=1e-2)
     a = np.asarray(g_f[1]["albedo"])
     b = np.asarray(g_x[1]["albedo"])

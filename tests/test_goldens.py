@@ -1,10 +1,11 @@
 """Golden-image regression anchors (VERDICT r1 item 10).
 
-Fixed-seed CPU renders of the two shipped reference scenes, a mesh scene,
-and the BVH stress scene are committed under tests/goldens/; every round's
-perf work must keep rendering THE SAME IMAGES.  Regenerate (and review the
-diff!) with scripts/make_goldens.py only after an intentional semantics
-change.  Reference anchors: scenes/*.json + lib/core/render.rs:61-127.
+Fixed-seed CPU renders of the benchmark scene, the ~100-sphere grid, the
+BVH stress scene and a generated 1,280-triangle mesh are committed under
+tests/goldens/; every round's perf work must keep rendering THE SAME
+IMAGES.  Regenerate (and review the diff!) with scripts/make_goldens.py
+only after an intentional semantics change.  Reference anchors:
+scenes/*.json + lib/core/render.rs:61-127.
 """
 
 import os
@@ -23,8 +24,8 @@ def _cases():
     return golden_cases()
 
 
-@pytest.mark.parametrize("name", ["benchmark", "simple", "bvh_stress",
-                                  "monkey"])
+@pytest.mark.parametrize("name", ["benchmark", "sphere_grid", "bvh_stress",
+                                  "mesh"])
 def test_golden(name):
     from raytracingrust_tpu.render.render import render_linear
 

@@ -74,13 +74,16 @@ def test_mesh_hit(tmp_path):
                                atol=1e-6)
 
 
-def test_mesh_bvh_equals_brute(tmp_path, reference_assets):
-    monkey = reference_assets / "monkey.obj"
+def test_mesh_bvh_equals_brute(tmp_path):
+    from raytracingrust_tpu.demo import icosphere
+
     b = SceneBuilder()
     b.settings = RenderSettings(samples_per_pixel=1, max_ray_depth=2)
     m = b.add_material(Lambertian((0.7, 0.7, 0.7)))
-    mesh = Mesh.from_file(str(monkey), m)
-    assert mesh.num_triangles == 967  # SURVEY.md: monkey.obj 967 faces
+    # a generated ~1k-triangle mesh, the size class of the reference's
+    # monkey.obj (967 faces)
+    mesh = icosphere((0, 0, 0), 0.8, m, subdiv=3, bump=0.1, seed=1)
+    assert mesh.num_triangles == 1280
     b.add_mesh(mesh)
     from raytracingrust_tpu.models.camera import Camera
     b.camera = Camera.create((0, 0, 3), (0, 0, 0), (0, 1, 0), 40.0, 1.0)

@@ -1,4 +1,5 @@
-"""Pallas megakernel tests (interpret mode on CPU).
+"""Sphere kernel tests (the Triton-route Pallas kernels in interpret mode
+on CPU).
 
 The kernel's in-lane threefry must be bit-exact with jax.random's cipher and
 derivation chain, and the rendered image must match the XLA integrator up to
@@ -8,7 +9,6 @@ f32 arithmetic-order noise (the two consume identical uniform draws).
 import numpy as np
 import jax
 import jax.numpy as jnp
-import pytest
 
 from raytracingrust_tpu import (
     Background,
@@ -291,7 +291,7 @@ def test_pallas_skymap_background():
     img[1, 3] = (9.0, 7.0, 5.0)  # bright sun texel
     b = benchmark_like_builder(bg=Background.skymap_from_array(img))
     scene = b.build(with_bvh=False)
-    assert PK.supports_fwd(scene) and PK.supports(scene)
+    assert PK.supports(scene)
     xla = np.asarray(render_linear(scene, 24, 20, seed=0, engine="xla"))
     pal = np.asarray(render_linear(scene, 24, 20, seed=0, engine="pallas"))
     # most channels are EXACTLY equal; the rest are isolated borderline-hit
@@ -405,117 +405,6 @@ def test_make_loss_fit_path_via_pallas():
     assert va != vb
 
 
-# ------------------------------------------------------------ triangle path
-
-def _tri_builder(with_spheres=True, depth=3, spp=1):
-    """Tetrahedron + single metal triangle (+ emissive sphere) scene for the
-    megakernel's MXU triangle path (Moller-Trumbore as in-kernel matmuls)."""
-    from raytracingrust_tpu.models.mesh import Mesh
-
-    b = SceneBuilder()
-    b.camera = Camera.create((0, 0.6, 2.0), (0, 0.2, 0), (0, 1, 0), 60.0, 1.0)
-    b.settings = RenderSettings(samples_per_pixel=spp, max_ray_depth=depth,
-                                enable_bvh_tree=False)
-    ml = b.add_material(Lambertian((0.7, 0.4, 0.2)))
-    mm = b.add_material(Metal((0.9, 0.9, 0.95), 0.05))
-    verts = np.array([[0, 0, 0], [0.6, 0, 0.1], [0.3, 0, -0.5],
-                      [0.3, 0.7, -0.1]], np.float32)
-    faces = np.array([[0, 1, 3], [1, 2, 3], [2, 0, 3], [0, 2, 1]], np.int32)
-    b.add_mesh(Mesh.from_buffers(verts, verts, faces, ml))
-    tv = np.array([[-1.0, 0, -0.5], [-0.2, 0, -0.6], [-0.6, 0.8, -0.55]],
-                  np.float32)
-    b.add_mesh(Mesh.from_buffers(tv, tv, np.array([[0, 1, 2]], np.int32), mm))
-    fl = np.array([[-20, 0, -20], [20, 0, -20], [0, 0, 20]], np.float32)
-    b.add_mesh(Mesh.from_buffers(fl, fl, np.array([[0, 1, 2]], np.int32), ml))
-    if with_spheres:
-        me = b.add_material(Emission((2.0, 1.8, 1.5)))
-        b.add_sphere((1.2, 1.5, 0.5), 0.5, me)
-    return b
-
-
-def test_pallas_triangles_match_xla():
-    """Pure-triangle scene: the MXU matmul intersector vs the XLA
-    triangle_ts path.  NOT exactly bit-identical: the kernel keeps the
-    bilinear-form t while XLA re-intersects the winner in the classic
-    cross-product form, so ulp-level t differences can flip a borderline
-    path — up to 2/1024 differing pixels are tolerated."""
-    scene = _tri_builder(with_spheres=False).build(with_bvh=False)
-    assert PK.supports(scene)
-    xla = np.asarray(render_linear(scene, 32, 32, seed=0, engine="xla"))
-    pal = np.asarray(render_linear(scene, 32, 32, seed=0, engine="pallas"))
-    neq = (xla != pal).any(-1)
-    assert neq.mean() <= 2 / 1024, f"{neq.sum()} pixels differ"
-
-
-def test_pallas_triangles_with_spheres():
-    """Mixed sphere+triangle scene: per-sample borderline flips only."""
-    scene = _tri_builder(with_spheres=True, depth=4, spp=2).build(
-        with_bvh=False)
-    assert PK.supports(scene)
-    xla = np.asarray(render_linear(scene, 16, 12, seed=0, engine="xla"))
-    pal = np.asarray(render_linear(scene, 16, 12, seed=0, engine="pallas"))
-    mismatched = (~np.isclose(xla, pal, atol=1e-4, rtol=1e-3)).mean()
-    assert mismatched <= 0.08, f"{mismatched:.4f} channels differ"
-    assert np.abs(xla - pal).mean() < 4e-2
-
-
-def test_pallas_triangle_grad_matches_xla():
-    """Material gradients THROUGH the triangle one-hot shading matmul (the
-    S-matrix cotangent path) must match the XLA engine."""
-    import dataclasses
-
-    scene = _tri_builder(with_spheres=True).build(with_bvh=False)
-
-    def make_loss(engine):
-        def loss(albedo):
-            mats = dataclasses.replace(
-                scene.materials,
-                albedo=scene.materials.albedo.at[0].set(albedo))
-            s2 = dataclasses.replace(scene, materials=mats)
-            img = render_linear(s2, 12, 12, seed=0, engine=engine)
-            return jnp.sum(img ** 2)
-        return loss
-
-    a0 = jnp.array([0.7, 0.4, 0.2], jnp.float32)
-    gx = jax.grad(make_loss("xla"))(a0)
-    gp = jax.grad(make_loss("pallas"))(a0)
-    np.testing.assert_allclose(np.asarray(gp), np.asarray(gx),
-                               rtol=2e-3, atol=1e-5)
-
-
-def test_pallas_triangle_chunking():
-    """A mesh spanning multiple TRI_BLOCK chunks exercises the chunk loop's
-    running-min/one-hot merge.  Build a 600-triangle fan (2 chunks at
-    TRI_BLOCK=512) and check against XLA."""
-    from raytracingrust_tpu.models.mesh import Mesh
-
-    n = 600
-    ang = np.linspace(0, 2 * np.pi, n + 1)
-    hub = np.array([[0.0, 0.3, -1.0]], np.float32)
-    rim = np.stack([0.8 * np.cos(ang), 0.3 + 0.0 * ang,
-                    -1.0 + 0.8 * np.sin(ang)], -1).astype(np.float32)
-    verts = np.concatenate([hub, rim], 0)
-    faces = np.stack([np.zeros(n, np.int32), np.arange(1, n + 1,
-                                                       dtype=np.int32),
-                      np.arange(2, n + 2, dtype=np.int32)], -1)
-    b = SceneBuilder()
-    b.camera = Camera.create((0, 1.5, 1.5), (0, 0.2, -1.0), (0, 1, 0),
-                             60.0, 1.0)
-    b.settings = RenderSettings(samples_per_pixel=1, max_ray_depth=2,
-                                enable_bvh_tree=False)
-    ml = b.add_material(Lambertian((0.6, 0.6, 0.2)))
-    b.add_mesh(Mesh.from_buffers(verts, verts, faces, ml))
-    scene = b.build(with_bvh=False)
-    # force multi-chunk: n=600 -> tb = 512, t_pad = 1024 = 2 chunks
-    from raytracingrust_tpu.ops.pallas_megakernel import _tri_sizes
-    assert _tri_sizes(len(scene.triangles))[1] // \
-        _tri_sizes(len(scene.triangles))[0] >= 2
-    xla = np.asarray(render_linear(scene, 24, 24, seed=0, engine="xla"))
-    pal = np.asarray(render_linear(scene, 24, 24, seed=0, engine="pallas"))
-    neq = (xla != pal).any(-1)
-    assert neq.mean() <= 4 / (24 * 24), f"{neq.sum()} pixels differ"
-
-
 def test_fused_mse_loss_matches_twopass():
     """The fused render->MSE->grad kernel (one pass per value_and_grad
     step) must reproduce the two-pass loss value and gradients: both the
@@ -577,23 +466,3 @@ def test_fused_mse_loss_matches_twopass():
     v_plain = float(loss_f(params))
     v_vag = float(jax.value_and_grad(loss_f)(params)[0])
     np.testing.assert_allclose(v_plain, v_vag, rtol=1e-5)
-
-
-def test_fused_mse_with_triangles():
-    """Triangle cotangents (C/S matrices) through the fused MSE kernel."""
-    from raytracingrust_tpu.diff.grad import extract_params, make_loss
-    from raytracingrust_tpu.ops.pallas_megakernel import supports_fused_mse
-
-    scene = _tri_builder(with_spheres=True, depth=3, spp=2).build(
-        with_bvh=False)
-    assert supports_fused_mse(scene)
-    target = render_linear(scene, 16, 16, seed=3, engine="xla") * 0.8
-    params = extract_params(scene, ("albedo",))
-    l_f = make_loss(scene, target, 16, 16, seed=0, engine="pallas")
-    l_x = make_loss(scene, target, 16, 16, seed=0, engine="xla")
-    v_f, g_f = jax.value_and_grad(l_f)(params)
-    v_x, g_x = jax.value_and_grad(l_x)(params)
-    np.testing.assert_allclose(float(v_f), float(v_x), rtol=5e-3)
-    np.testing.assert_allclose(np.asarray(g_f["albedo"]),
-                               np.asarray(g_x["albedo"]),
-                               rtol=1e-2, atol=1e-4)

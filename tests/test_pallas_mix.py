@@ -2,17 +2,15 @@
 
 The reference blends materials stochastically per scatter call
 (lib/materials.rs:141-157) and scatters isotropically inside volumes
-(lib/volume.rs:75-88).  The brute-force Pallas kernel bakes single-level
+(lib/volume.rs:75-88).  The sphere kernel bakes single-level
 mixes as TWO leaf parameter sets per primitive, resolved with the same
 level-0 mix coin the XLA engine draws (ops/shade.py resolve_mix), so
-sphere-only scenes must stay bit-identical across engines; triangle scenes
-keep the usual ulp-level borderline-path tolerance.
+sphere-only scenes must stay bit-identical across engines.
 """
 
 import numpy as np
 import jax
 import jax.numpy as jnp
-import pytest
 
 from raytracingrust_tpu import (
     Camera,
@@ -54,33 +52,10 @@ def _mix_sphere_scene(spp=2, depth=4, unit_scale=True):
     return b.build(with_bvh=False)
 
 
-def _mix_tri_scene():
-    b = SceneBuilder()
-    b.camera = Camera.create((0, 0, 1.5), (0, 0, -1), (0, 1, 0), 70.0, 1.0)
-    b.settings = RenderSettings(samples_per_pixel=2, max_ray_depth=4,
-                                enable_bvh_tree=False)
-    from raytracingrust_tpu.models.mesh import Mesh
-
-    mmix = b.add_material(MixMaterial(
-        Lambertian((0.7, 0.3, 0.2)), Metal((0.95, 0.95, 0.95), 0.05), 0.5))
-    mlam = b.add_material(Lambertian((0.3, 0.5, 0.7)))
-    quad = np.array([[-2, -0.5, -2], [2, -0.5, -2],
-                     [2, -0.5, 2], [-2, -0.5, 2]], np.float32)
-    b.add_mesh(Mesh.from_buffers(
-        quad, quad, np.array([[0, 1, 2], [0, 2, 3]], np.int32), mlam))
-    tri = np.array([[-0.6, -0.5, -1], [0.6, -0.5, -1], [0, 0.6, -1]],
-                   np.float32)
-    b.add_mesh(Mesh.from_buffers(
-        tri, tri, np.array([[0, 1, 2]], np.int32), mmix))
-    me = b.add_material(Emission((2.5, 2.2, 1.8)))
-    b.add_sphere((1.0, 1.2, -0.5), 0.4, me)
-    return b.build(with_bvh=False)
-
-
 def test_repo_demo_scenes_on_fast_path():
     """VERDICT round-1 item 4: the shipped demo scenes (mixes in
-    material_zoo, a volume in cornell_spheres) must ride a Pallas kernel,
-    not fall back to XLA."""
+    material_zoo, a volume in cornell_spheres) must be inside the sphere
+    kernel's envelope."""
     import pathlib
 
     from raytracingrust_tpu.models.scene import load_scene
@@ -96,7 +71,6 @@ def test_supports_single_level_mix_and_iso():
     scene = _mix_sphere_scene()
     assert scene.materials.has_mix
     assert PK.supports(scene)
-    assert PK.supports_fwd(scene)
 
 
 def test_supports_rejects_nested_mix():
@@ -109,7 +83,6 @@ def test_supports_rejects_nested_mix():
     b.add_sphere((0, 0, -1), 0.5, m)
     scene = b.build(with_bvh=False)
     assert not PK.supports(scene)
-    assert not PK.supports_fwd(scene)
 
 
 def test_mix_iso_spheres_bit_identical_unit_scale():
@@ -133,17 +106,6 @@ def test_mix_iso_spheres_with_ground_close():
     mismatched = (~np.isclose(xla, pal, atol=1e-4, rtol=1e-3)).mean()
     assert mismatched <= 0.08, f"{mismatched:.4f} channels differ"
     assert np.abs(xla - pal).mean() < 4e-2
-
-
-def test_mix_triangles_match_xla():
-    """Triangle mix scene: ulp-level t-form differences can flip borderline
-    paths (see test_pallas.py:test_pallas_triangles_match_xla)."""
-    scene = _mix_tri_scene()
-    assert PK.supports(scene)
-    xla = np.asarray(render_linear(scene, 32, 32, seed=0, engine="xla"))
-    pal = np.asarray(render_linear(scene, 32, 32, seed=0, engine="pallas"))
-    neq = (xla != pal).any(-1)
-    assert neq.mean() <= 2 / 1024, f"{neq.sum()} pixels differ"
 
 
 def test_mix_uniform_column_alignment():
@@ -257,49 +219,3 @@ def test_volume_grad_matches_xla():
             rtol=2e-3, atol=2e-5, err_msg=f"param {k}",
         )
     assert np.abs(np.asarray(g_xla["albedo"])).sum() > 0
-
-
-def _iso_grid_builder(n_spheres):
-    b = SceneBuilder()
-    b.camera = Camera.create((0, 0, 2), (0, 0, -1), (0, 1, 0), 70.0, 1.0)
-    b.settings = RenderSettings(samples_per_pixel=2, max_ray_depth=4,
-                                enable_bvh_tree=True)
-    miso = b.add_material(Isotropic((0.8, 0.6, 0.4)))
-    mlam = b.add_material(Lambertian((0.3, 0.5, 0.7)))
-    rs = np.random.RandomState(3)
-    for i in range(n_spheres):
-        c = rs.uniform(-4, 4, 3).astype(np.float32)
-        c[2] -= 5.0
-        b.add_sphere(tuple(c), 0.25, miso if i % 3 == 0 else mlam)
-    return b.build(with_bvh=True)
-
-
-def test_bvh_kernel_isotropic_bitwise_vs_brute():
-    """The packet-traversal kernel shades Isotropic via the implicit
-    complement one-hot (no spare _BS_ row).  Traversal only changes which
-    primitives are TESTED, so it must be BITWISE equal to the brute-force
-    kernel on a scene both support; vs XLA it keeps the established
-    scatter-math tolerance (test_pallas_bvh.py:assert_matches_xla)."""
-    scene = _iso_grid_builder(60)
-    assert PK.supports(scene) and PK.supports_bvh(scene)
-    brute = np.asarray(render_linear(scene, 16, 16, seed=0,
-                                     engine="pallas"))
-    bvh = np.asarray(render_linear(scene, 16, 16, seed=0,
-                                   engine="pallas_bvh"))
-    np.testing.assert_array_equal(bvh, brute)
-    xla = np.asarray(render_linear(scene, 16, 16, seed=0, engine="xla"))
-    mismatched = (~np.isclose(xla, bvh, atol=1e-4, rtol=1e-3)).mean()
-    assert mismatched <= 0.08, f"{mismatched:.4f} channels differ"
-
-
-def test_bvh_kernel_isotropic_big_scene_gate():
-    """> MAX_UNROLLED_SPHERES with an Isotropic: brute kernel out, BVH
-    kernel in (the round-1 supports_bvh excluded ISOTROPIC entirely)."""
-    scene = _iso_grid_builder(260)
-    assert not PK.supports(scene)
-    assert PK.supports_bvh(scene)
-    xla = np.asarray(render_linear(scene, 16, 16, seed=0, engine="xla"))
-    bvh = np.asarray(render_linear(scene, 16, 16, seed=0,
-                                   engine="pallas_bvh"))
-    mismatched = (~np.isclose(xla, bvh, atol=1e-4, rtol=1e-3)).mean()
-    assert mismatched <= 0.10, f"{mismatched:.4f} channels differ"

@@ -59,3 +59,15 @@ def test_non_divisible_pixel_count():
                               seed=2)
     )
     np.testing.assert_allclose(single, multi, atol=1e-6)
+
+
+@pytest.mark.parametrize("n_dev", [2, 4])
+def test_sharded_kernel_render_matches_single(n_dev):
+    """The sphere kernel per shard inside shard_map (interpret mode here):
+    the N-device kernel render equals the 1-device kernel render."""
+    scene = scene_builder().build()
+    single = np.asarray(render_linear(scene, 12, 8, seed=4,
+                                      engine="pallas"))
+    multi = render_linear_sharded(scene, 12, 8, seed=4, engine="pallas",
+                                  mesh=make_mesh(jax.devices()[:n_dev]))
+    np.testing.assert_allclose(single, multi, atol=1e-6)
